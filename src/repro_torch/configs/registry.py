@@ -1,0 +1,18 @@
+"""Architecture registry of the port: ``--arch <id>`` resolution for the
+launchers.  Only the families the port can serve are registered."""
+from __future__ import annotations
+
+from typing import Dict
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.granite_3_2b import CONFIG as GRANITE_3_2B
+
+ARCHITECTURES: Dict[str, ModelConfig] = {c.name: c for c in (GRANITE_3_2B,)}
+
+
+def get_arch(name: str) -> ModelConfig:
+    try:
+        return ARCHITECTURES[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown arch {name!r}; available: {sorted(ARCHITECTURES)}") from None

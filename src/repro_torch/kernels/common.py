@@ -1,0 +1,65 @@
+"""Argument checks and the ctypes call shared by the kernel wrappers."""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Sequence
+
+import torch
+
+from repro_torch.kernels import build
+
+# the kernels' ``dtype`` argument
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def on_cpu(tensors: Dict[str, torch.Tensor]) -> bool:
+    """True when every tensor lies on the CPU (the plain version runs),
+    False when all lie on one CUDA device (the kernel runs).  Anything else
+    raises: a CUDA tensor never reaches the plain version."""
+    devices = {t.device for t in tensors.values()}
+    if devices == {torch.device("cpu")}:
+        return True
+    if len(devices) == 1 and next(iter(devices)).type == "cuda":
+        return False
+    raise ValueError(f"inputs must all lie on the CPU or on one CUDA device, "
+                     f"got {({k: str(t.device) for k, t in tensors.items()})}")
+
+
+def check_cuda_inputs(kernel: str, floats: Dict[str, torch.Tensor],
+                      ints: Dict[str, torch.Tensor]) -> int:
+    """Raise unless every float input shares one supported dtype, every
+    index input is int32 and all are contiguous.  Returns the dtype code."""
+    dtypes = {t.dtype for t in floats.values()}
+    if len(dtypes) != 1 or next(iter(dtypes)) not in DTYPE_CODES:
+        raise TypeError(f"{kernel}: float inputs must share one dtype of "
+                        f"{list(DTYPE_CODES)}, got "
+                        f"{({k: t.dtype for k, t in floats.items()})}")
+    for k, t in ints.items():
+        if t.dtype != torch.int32:
+            raise TypeError(f"{kernel}: {k} must be int32, got {t.dtype}")
+    for k, t in {**floats, **ints}.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: {k} must be contiguous")
+    return DTYPE_CODES[next(iter(dtypes))]
+
+
+def launch(name: str, error_fn: str, device: torch.device,
+           pointers: Sequence[torch.Tensor], ints: Sequence[int]) -> None:
+    """Launch the C function ``name(pointers..., ints..., stream)`` of
+    library ``name`` on the current stream of ``device``; raise if the
+    launch was refused (its cudaGetLastError, returned, is not 0)."""
+    lib = build.load(name)
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * len(pointers)
+                       + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*[t.data_ptr() for t in pointers], *ints, stream)
+    if rc != 0:
+        err = getattr(lib, error_fn)
+        err.restype = ctypes.c_char_p
+        err.argtypes = [ctypes.c_int]
+        raise RuntimeError(f"{name} launch failed: cuda error {rc} "
+                           f"({err(rc).decode()})")

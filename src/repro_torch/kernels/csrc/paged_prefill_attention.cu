@@ -1,0 +1,166 @@
+// Paged prefill-chunk attention for Hopper (sm_90a): the C queries of one
+// prompt chunk per sequence attend the sequence's prefix, read in place
+// from its KV pages, and then the chunk's own keys causally.
+//
+// Replaces the Pallas TPU kernel
+// src/repro/kernels/paged_prefill_attention.py::paged_prefill_attention.
+//
+//   q            (B, H, C, D)       float32 or bfloat16; row c sits at
+//                                   absolute position starts[b] + c
+//   k/v_pages    (N, KVH, bs, D)    same type as q
+//   chunk_k/v    (B, KVH, C, D)     the chunk's own keys and values
+//   block_table  (B, nb) int32      ids >= N are sentinels, clamped
+//   starts       (B,) int32         tokens already in pages
+//   valid        (B,) int32         real tokens in the chunk (0 = inactive)
+//   out          (B, H, C, D)       q's type
+//
+// Every prefix position < starts[b] is visible to every chunk query; chunk
+// key j is visible to query c iff j <= c and j < valid[b].  Rows at or past
+// valid[b] are garbage the caller ignores; q tiles that start at or past
+// valid[b] (all of a valid == 0 row) write 0 and read nothing.
+//
+// Bound on the H100: the bytes read, the live prefix KV
+// (2 * sum_b starts[b] * KVH * D * sizeof(T)) plus q, the chunk k/v and the
+// output, over 3.35 TB/s; the arithmetic is 4 flops per (query head, key,
+// dimension).  One CTA per (b, kv_head, q tile) holds the GQA group's
+// queries of a tile of chunk positions (group * tile <= 64 rows), so each
+// live prefix page is read once per KV head and q tile, never densified
+// into a gathered copy, and both segments fold into one f32 online
+// softmax.  The products run on the CUDA cores, not the tensor cores:
+// this first version favours a simple, exact design.
+#include "paged_attention.cuh"
+
+namespace paged {
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    paged_prefill_kernel(const T* __restrict__ q,
+                         const T* __restrict__ k_pages,
+                         const T* __restrict__ v_pages,
+                         const T* __restrict__ chunk_k,
+                         const T* __restrict__ chunk_v,
+                         const int* __restrict__ block_table,
+                         const int* __restrict__ starts,
+                         const int* __restrict__ valid, T* __restrict__ out,
+                         int H, int KVH, int C, int D, int N, int bs, int nb,
+                         int TQ) {
+  extern __shared__ float smem[];
+  const int c0 = blockIdx.x * TQ;  // first chunk position of this q tile
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int G = H / KVH;
+  const int rows = G * TQ;  // row r: head kvh * G + r / TQ, position c0 + r % TQ
+  const int vd = min(valid[b], C);
+  const size_t head0 = (size_t)b * H + (size_t)kvh * G;
+
+  if (c0 >= vd) {
+    for (int e = threadIdx.x; e < rows * D; e += kThreads) {
+      const int r = e / D;
+      const int c = c0 + r % TQ;
+      if (c < C)
+        out[((head0 + r / TQ) * C + c) * D + e % D] = from_float<T>(0.f);
+    }
+    return;
+  }
+
+  const Shared sh = carve(smem, rows, D);
+  const float scale = 1.f / sqrtf((float)D);
+  for (int e = threadIdx.x; e < rows * D; e += kThreads) {
+    const int r = e / D;
+    const int c = c0 + r % TQ;
+    sh.q[e] = c < C ? to_float(q[((head0 + r / TQ) * C + c) * D + e % D]) * scale
+                    : 0.f;
+  }
+  float acc[kAcc];
+  init_rows(sh, rows, acc);
+
+  // the prefix: chunk queries all sit at positions >= starts[b], so every
+  // live prefix key is visible to every row
+  const int n_prefix = min(starts[b], nb * bs);
+  const int* bt_row = block_table + (size_t)b * nb;
+  const auto all = [](int, int) { return true; };
+  for (int k0 = 0; k0 < n_prefix; k0 += kTileK) {
+    const int nk = min(kTileK, n_prefix - k0);
+    load_page_tile(sh, k_pages, v_pages, bt_row, kvh, KVH, bs, D, N, k0, nk);
+    fold_tile(sh, rows, D, nk, all, acc);
+  }
+
+  // the chunk's own keys, causal within the chunk and below valid[b]; keys
+  // past this tile's last query are invisible to all of its rows
+  const int n_chunk = min(vd, min(c0 + TQ, C));
+  const size_t kv0 = ((size_t)b * KVH + kvh) * C * D;
+  for (int j0 = 0; j0 < n_chunk; j0 += kTileK) {
+    const int nk = min(kTileK, n_chunk - j0);
+    load_chunk_tile(sh, chunk_k + kv0, chunk_v + kv0, D, j0, nk);
+    const auto causal = [=](int r, int j) {
+      return j0 + j <= c0 + r % TQ && j0 + j < vd;
+    };
+    fold_tile(sh, rows, D, nk, causal, acc);
+  }
+  __syncthreads();
+
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    if (idx < rows * D) {
+      const int r = idx / D;
+      const int c = c0 + r % TQ;
+      if (c < C)
+        out[((head0 + r / TQ) * C + c) * D + idx % D] =
+            from_float<T>(acc[i] / fmaxf(sh.l[r], 1e-20f));
+    }
+  }
+}
+
+template <typename T>
+int launch(const void* q, const void* k_pages, const void* v_pages,
+           const void* chunk_k, const void* chunk_v, const int* block_table,
+           const int* starts, const int* valid, void* out, int B, int H,
+           int KVH, int C, int D, int N, int bs, int nb, int TQ,
+           cudaStream_t stream) {
+  const size_t smem = shared_bytes((H / KVH) * TQ, D);
+  if (smem > kDefaultSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        paged_prefill_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((C + TQ - 1) / TQ, KVH, B);
+  paged_prefill_kernel<T><<<grid, kThreads, smem, stream>>>(
+      (const T*)q, (const T*)k_pages, (const T*)v_pages, (const T*)chunk_k,
+      (const T*)chunk_v, block_table, starts, valid, (T*)out, H, KVH, C, D, N,
+      bs, nb, TQ);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace paged
+
+// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = launched).
+extern "C" int paged_prefill_attention(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* chunk_k, const void* chunk_v, const void* block_table,
+    const void* starts, const void* valid, void* out, int B, int H, int KVH,
+    int C, int D, int N, int bs, int nb, int dtype, void* stream) {
+  using namespace paged;
+  if (B < 1 || KVH < 1 || H % KVH != 0 || H / KVH > kMaxRows || C < 1 ||
+      D < 1 || D > kMaxD || N < 1 || bs < 1 || nb < 1)
+    return (int)cudaErrorInvalidValue;
+  // query positions per tile: the GQA group times TQ fills <= kMaxRows rows
+  const int fit = kMaxRows / (H / KVH);
+  const int TQ = C < fit ? C : fit;
+  const int* bt = (const int*)block_table;
+  const int* st = (const int*)starts;
+  const int* vd = (const int*)valid;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return launch<float>(q, k_pages, v_pages, chunk_k, chunk_v, bt, st, vd,
+                         out, B, H, KVH, C, D, N, bs, nb, TQ, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(q, k_pages, v_pages, chunk_k, chunk_v, bt, st,
+                                 vd, out, B, H, KVH, C, D, N, bs, nb, TQ, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" const char* paged_prefill_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

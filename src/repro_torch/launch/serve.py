@@ -1,0 +1,257 @@
+"""Serving driver: a QLM-managed cluster over the port's engines.
+
+Runs the full QLM stack — request groups, virtual queues, RWT estimator,
+global scheduler, LSO agents — against a Poisson workload and prints SLO
+attainment and throughput, with every engine serving through the CUDA
+paged-attention kernels (or, with ``--device cpu``, their plain versions).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
+      --requests 40 --rate 2.0
+
+The registry holds the reduced config of each arch, as the reference CLI
+does (``src/repro/launch/serve.py``); ``--routing`` and
+``--compare-routing`` work as there.  ``--threaded`` and ``--hetero`` are
+not ported yet.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_arch
+from repro_torch.core.global_scheduler import InstanceInfo
+from repro_torch.core.lso import QLMAgent
+from repro_torch.core.qlm import QLMConfig, QLMController
+from repro_torch.core.request import make_request
+from repro_torch.core.virtual_queue import VirtualQueue
+from repro_torch.device import resolve_device
+from repro_torch.models import build_model
+from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
+from repro_torch.sim.profiles import calibrate_from_engine
+
+
+def build_registry(arch_names, seed: int = 0, device="cuda"):
+    """name -> (Model, params) for each requested arch (reduced configs),
+    weights drawn on ``device`` from a generator seeded with ``seed``:
+    bfloat16 on the card, float32 on the CPU."""
+    dev = resolve_device(device)
+    dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    registry = {}
+    for name in arch_names:
+        model = build_model(get_arch(name).reduced())
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        registry[name] = (model, model.init(gen, dtype, dev))
+    return registry
+
+
+def calibrate_registry(registry, ecfg: EngineConfig) -> dict:
+    """name -> HardwareProfile, each calibrated on ITS OWN model with one
+    throwaway engine."""
+    hw_by_model = {}
+    for name, (model, params) in registry.items():
+        eng = ContinuousBatchingEngine(model, params, ecfg, model_name=name)
+        hw_by_model[name] = calibrate_from_engine(
+            eng, token_capacity=ecfg.resolved_kv_blocks() * ecfg.block_size)
+    return hw_by_model
+
+
+def engine_config(args, dtype: torch.dtype) -> EngineConfig:
+    """The engines' config; ``dtype`` is the weights' (the KV pool's)."""
+    return EngineConfig(max_slots=args.slots, max_seq_len=128,
+                        decode_burst=args.decode_burst,
+                        attention_backend=args.backend,
+                        prefix_sharing=args.prefix_sharing,
+                        debug_invariants=bool(getattr(args, "debug_invariants",
+                                                      False)),
+                        device=args.device, dtype=dtype)
+
+
+def build_cluster(args, registry, arch_names):
+    """Engines + agents + controller: one calibration shared by every
+    instance (``--hetero`` tiers are not ported)."""
+    if getattr(args, "hetero", False):
+        raise NotImplementedError(
+            "--hetero needs the sharding rules, which are not ported yet")
+    ecfg = engine_config(args, registry[arch_names[0]][1]["embed"].dtype)
+    hw = calibrate_registry(registry, ecfg)
+    engines, agents, infos = [], [], []
+    for i in range(args.instances):
+        m0, p0 = registry[arch_names[0]]
+        eng = ContinuousBatchingEngine(m0, p0, ecfg, model_name=arch_names[0])
+        vq = VirtualQueue(i)
+        agents.append(QLMAgent(eng, vq, registry))
+        engines.append(eng)
+        infos.append(InstanceInfo(i, dict(hw), eng.model_name, vq))
+    controller = QLMController(infos, QLMConfig(
+        avg_batch_size=args.slots,
+        routing=getattr(args, "routing", "solver"),
+        debug_invariants=ecfg.debug_invariants))
+    controller.attach_engines(engines)
+    return engines, agents, infos, controller
+
+
+def build_workload(args, arch_names, t_start: float):
+    rng = np.random.default_rng(args.seed)
+    classes = ["interactive", "batch1", "batch2"]
+    arrivals = np.cumsum(rng.exponential(1.0 / args.rate, args.requests))
+    reqs = []
+    for i in range(args.requests):
+        prompt = rng.integers(0, 100, size=int(rng.integers(4, 24))).tolist()
+        r = make_request(prompt, rng.choice(arch_names), rng.choice(classes),
+                         arrival_time=t_start + arrivals[i],
+                         max_new_tokens=args.max_new_tokens)
+        reqs.append(r)
+    return reqs
+
+
+def summarize(reqs, controller, engines, t_start: float, now: float) -> dict:
+    """Printed-stats accounting, mirroring QLMController.slo_attainment:
+    requests that never got a first token (rejected / shed / expired, or
+    still queued past their deadline at ``now``) are SLO misses."""
+    failed = [r for r in reqs if r.failed]
+    served = [r for r in reqs if r.ttft() is not None and not r.failed]
+    dropped = [r for r in reqs if r.ttft() is None and not r.failed
+               and (r.dropped() or now > r.deadline)]
+    known = {id(r) for r in reqs}
+    extra_rej = [r for r in controller.rejected if id(r) not in known]
+    scored = len(served) + len(dropped) + len(extra_rej) + len(failed)
+    met = sum(1 for r in served if r.slo_met())
+    done_times = [r.completion_time for r in reqs if r.completion_time]
+    span = max(max(done_times, default=now) - t_start, 1e-9)
+    tokens = sum(e.stats.tokens_generated for e in engines)
+    return {
+        "requests": len(reqs),
+        "served": len(served),
+        "rejected": len(extra_rej) + sum(1 for r in reqs if r.rejected),
+        "dropped_unserved": len(dropped),
+        "failed": len(failed),
+        "redeliveries": controller.redeliveries,
+        "hangs": controller.hangs,
+        "drains": controller.drains,
+        "replacements": controller.replacements,
+        "migrations": controller.migrations,
+        "dead_instances": sum(1 for i in range(len(controller.instances))
+                              if not controller.is_alive(i)),
+        "slo_attainment": met / scored if scored else 1.0,
+        "mean_ttft_s": float(np.mean([r.ttft() for r in served]))
+        if served else None,
+        "throughput_rps": len(served) / span,
+        "evictions": sum(e.stats.evictions for e in engines),
+        "swaps": sum(e.stats.model_swaps for e in engines),
+        "tokens": tokens,
+        "tokens_per_s": tokens / span,
+        "prefix_hits": sum(e.stats.prefix_hits for e in engines),
+        "prefix_shared_tokens": sum(e.stats.prefix_shared_tokens
+                                    for e in engines),
+    }
+
+
+def _terminal(r) -> bool:
+    return r.finished() or r.dropped()
+
+
+def run_round_robin(args, registry, arch_names):
+    """Single-thread polling loop: one round interleaves every engine in
+    turn, on the wall clock.  Returns ``(stats, requests, engines)``."""
+    engines, agents, infos, controller = build_cluster(args, registry,
+                                                       arch_names)
+    t_start = time.monotonic()
+    reqs = build_workload(args, arch_names, t_start)
+    pending = list(reqs)
+    deadline = t_start + args.max_wall
+    while not all(_terminal(r) for r in reqs):
+        now = time.monotonic()
+        if now > deadline:
+            break
+        while pending and pending[0].arrival_time <= now:
+            controller.submit(pending.pop(0), now)
+        for inst, eng, agent in zip(infos, engines, agents):
+            inst.current_model = eng.model_name
+            agent.run_iteration()
+        controller.tick(time.monotonic())
+        if not any(e.num_active() for e in engines) and pending:
+            time.sleep(min(0.01, max(0.0,
+                                     pending[0].arrival_time - now)))
+    stats = summarize(reqs, controller, engines, t_start, time.monotonic())
+    stats["driver"] = "round-robin"
+    stats["routing"] = controller.cfg.routing
+    return stats, reqs, engines
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="granite-3-2b")
+    ap.add_argument("--arch2", default=None,
+                    help="second model for multi-model serving")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device of every engine (cpu runs the "
+                         "kernels' plain versions)")
+    ap.add_argument("--instances", type=int, default=1)
+    ap.add_argument("--requests", type=int, default=30)
+    ap.add_argument("--rate", type=float, default=2.0)
+    ap.add_argument("--max-new-tokens", type=int, default=16)
+    ap.add_argument("--slots", type=int, default=8)
+    ap.add_argument("--decode-burst", type=int, default=1,
+                    help="decode iterations per engine round trip "
+                         "(QLMAgent.run_iteration drives steps())")
+    ap.add_argument("--backend", default=None, choices=[None, "paged-cuda"])
+    ap.add_argument("--prefix-sharing", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="refcounted shared-prefix KV pages")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--threaded", action="store_true",
+                    help="thread-per-engine serve loop (not ported)")
+    ap.add_argument("--hetero", action="store_true",
+                    help="heterogeneous capacity tiers (not ported)")
+    ap.add_argument("--routing", default="solver",
+                    choices=["solver", "slice"],
+                    help="group placement policy (core/routing.py)")
+    ap.add_argument("--debug-invariants", action="store_true",
+                    help="run the engine/queue invariant checkers every "
+                         "round/tick")
+    ap.add_argument("--max-wall", type=float, default=180.0,
+                    help="wall-clock bound per run")
+    ap.add_argument("--compare-routing", action="store_true",
+                    help="run slice AND solver routing same-seed")
+    ap.add_argument("--json", default=None, help="write final stats JSON")
+    args = ap.parse_args(argv)
+    if args.threaded:
+        raise NotImplementedError(
+            "--threaded needs serving/cluster.py and serving/faults.py, "
+            "which are not ported yet")
+
+    arch_names = [args.arch] + ([args.arch2] if args.arch2 else [])
+    registry = build_registry(arch_names, args.seed, args.device)
+
+    out = {}
+    if args.compare_routing:
+        for routing in ("slice", "solver"):
+            a = argparse.Namespace(**vars(args))
+            a.routing = routing
+            out[routing] = run_round_robin(a, registry, arch_names)[0]
+    else:
+        out["run"] = run_round_robin(args, registry, arch_names)[0]
+
+    for name, st in out.items():
+        if len(out) > 1:
+            print(f"--- {name} ---")
+        for k, v in st.items():
+            print(f"{k:18s} {v:.3f}" if isinstance(v, float)
+                  else f"{k:18s} {v}")
+    if args.compare_routing:
+        print(f"attainment         slice "
+              f"{out['slice']['slo_attainment']:.3f} vs solver "
+              f"{out['solver']['slo_attainment']:.3f}")
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(out, f, indent=2)
+    return out["run"] if "run" in out else out
+
+
+if __name__ == "__main__":
+    main()

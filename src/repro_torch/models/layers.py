@@ -1,0 +1,99 @@
+"""Shared building blocks: initializers, norms, RoPE, the SwiGLU MLP,
+embedding and the vocab-padding mask (PyTorch twins of
+``src/repro/models/layers.py``).
+
+Model code is functional: ``init_*`` builds nested dicts of tensors and the
+forward functions consume them.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+# ---------------------------------------------------------------------------
+# initializers (same distributions and scales as the reference; the
+# numbers differ, since torch's generator is not JAX's)
+# ---------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
+               dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """Truncated-normal fan-in init: std 1/sqrt(in_dim), cut at 2 std."""
+    w = torch.empty((in_dim, out_dim), dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (w * (1.0 / math.sqrt(in_dim))).to(dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype: torch.dtype,
+               device: torch.device) -> torch.Tensor:
+    w = torch.randn((vocab, dim), generator=gen, dtype=torch.float32,
+                    device=device)
+    return (w * 0.02).to(dtype)
+
+
+def init_swiglu_mlp(gen: torch.Generator, d_model: int, d_ff: int,
+                    dtype: torch.dtype, device: torch.device):
+    return {
+        "gate": dense_init(gen, d_model, d_ff, dtype, device),
+        "up": dense_init(gen, d_model, d_ff, dtype, device),
+        "down": dense_init(gen, d_ff, d_model, dtype, device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# forward pieces
+# ---------------------------------------------------------------------------
+
+def mask_padded_logits(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
+    """Mask the vocab-padding tail (see ModelConfig.padded_vocab) to -1e30."""
+    if logits.shape[-1] == vocab_size:
+        return logits
+    idx = torch.arange(logits.shape[-1], device=logits.device)
+    return logits.masked_fill(idx >= vocab_size, -1e30)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * scale.float()).to(dtype)
+
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device: torch.device) -> torch.Tensor:
+    """(head_dim//2,) inverse frequencies."""
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=device) / head_dim
+    return 1.0 / (theta ** exponent)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """Rotate pairs. x: (..., seq, heads, head_dim); positions: (..., seq)."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)
+    angles = positions[..., :, None].float() * freqs        # (..., seq, hd/2)
+    cos = torch.cos(angles)[..., :, None, :]                # (..., seq, 1, hd/2)
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu_mlp(params, x: torch.Tensor) -> torch.Tensor:
+    gate = F.silu(x @ params["gate"])
+    return (gate * (x @ params["up"])) @ params["down"]
+
+
+def embed_tokens(params, tokens: torch.Tensor) -> torch.Tensor:
+    return params["embed"][tokens.long()]
+
+
+def unembed(params, cfg, x: torch.Tensor) -> torch.Tensor:
+    """Logits over the padded vocab; with ``tie_embeddings`` the output
+    projection is the embedding's transpose."""
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return mask_padded_logits(x @ w, cfg.vocab_size)

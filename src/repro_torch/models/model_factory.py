@@ -1,0 +1,50 @@
+"""Model interface of the port (twin of ``src/repro/models/model_factory.py``
+for ``arch_type == "dense"``, paged serving paths only).
+
+``build_model(cfg)`` returns a ``Model`` with:
+  * ``init(gen, dtype, device)``  -> params (random, from ``gen``)
+  * ``init_paged_cache(num_blocks, block_size, dtype, device)`` -> page pools
+  * ``prefill_chunk_paged(params, cache, tokens, starts, valid, block_table)``
+  * ``decode_step_paged(params, cache, tokens, lengths, block_table)``
+Both serving paths return ``(logits, cache)`` and update the cache in place.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    init: Callable
+    init_paged_cache: Callable
+    prefill_chunk_paged: Callable
+    decode_step_paged: Callable
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    if cfg.arch_type != "dense":
+        raise NotImplementedError(
+            f"the port serves dense decoders only, got arch_type "
+            f"{cfg.arch_type!r} ({cfg.name})")
+    return Model(
+        cfg=cfg,
+        init=lambda gen, dtype=torch.float32, device="cuda":
+            transformer.init_lm(gen, cfg, dtype, resolve_device(device)),
+        init_paged_cache=lambda num_blocks, block_size, dtype=torch.float32,
+        device="cuda": transformer.init_paged_cache(
+            cfg, num_blocks, block_size, dtype, resolve_device(device)),
+        prefill_chunk_paged=lambda params, cache, tokens, starts, valid,
+        block_table: transformer.prefill_chunk_paged(
+            params, cfg, tokens, starts, valid, block_table, cache),
+        decode_step_paged=lambda params, cache, tokens, lengths, block_table:
+            transformer.decode_step_paged(params, cfg, tokens, lengths,
+                                          block_table, cache),
+    )

@@ -13,6 +13,10 @@ def pytest_configure(config):
         "markers",
         "pallas: Pallas-kernel parity tests (interpret mode off-TPU) — "
         "select with `-m pallas`, skip with `-m 'not pallas'`")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the PyTorch port's CUDA "
+        "kernels); skips without one")
     # QLINT_INVARIANTS=1 turns the whole suite into an invariant suite:
     # every BlockManager state transition and every engine round boundary
     # (in ANY test, however the engine was constructed) runs

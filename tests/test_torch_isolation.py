@@ -1,0 +1,90 @@
+"""The port stands alone: no module of ``repro_torch`` and not
+``chip_smoke.py`` imports JAX or the reference package; the plain-Python
+modules it copies stay equal to their reference sources; and its entry
+points refuse to fall back to the CPU when CUDA is missing."""
+import ast
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+REF = ROOT / "src" / "repro"
+
+# verbatim copies: equal to the reference after the import rewrite
+COPIES = ["configs/base.py", "configs/granite_3_2b.py", "core/__init__.py",
+          "core/request.py", "core/rwt_estimator.py",
+          "core/request_group.py", "core/solver.py", "core/virtual_queue.py",
+          "core/global_scheduler.py", "core/routing.py", "core/qlm.py",
+          "core/lso.py", "serving/kv_cache.py", "analysis/invariants.py"]
+
+
+def _rewrite(src: str) -> str:
+    return re.sub(r"^(\s*)(from|import) repro\.", r"\1\2 repro_torch.", src,
+                  flags=re.M)
+
+
+def _imported_roots(path: pathlib.Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
+                         + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_import_of_jax_or_the_reference(path):
+    roots = set(_imported_roots(path))
+    assert not roots & {"jax", "jaxlib", "repro"}, roots
+
+
+def test_importing_every_module_loads_no_jax():
+    modules = sorted(
+        "repro_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)
+        .replace(".__init__", "")
+        for p in PORT.rglob("*.py"))
+    code = ("import sys, importlib\n"
+            f"for m in {modules!r}: importlib.import_module(m.rstrip('.'))\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "print(len(sys.modules)); assert not bad, bad\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_copied_module_equals_its_reference(rel):
+    assert (PORT / rel).read_text() == _rewrite((REF / rel).read_text())
+
+
+def test_trimmed_profiles_keep_calibrate_from_engine_verbatim():
+    def body(text):
+        return text[text.index("def calibrate_from_engine"):]
+    assert body((PORT / "sim/profiles.py").read_text()) \
+        == body((REF / "sim/profiles.py").read_text())
+
+
+def test_engine_without_cuda_raises_instead_of_using_the_cpu(monkeypatch):
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import build_registry
+    from repro_torch.models import build_model
+    from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = build_model(get_arch("granite-3-2b").reduced(num_layers=1,
+                                                         d_model=64))
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = model.init(gen, torch.float32, "cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ContinuousBatchingEngine(model, params, EngineConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_registry(["granite-3-2b"])

@@ -1,0 +1,119 @@
+"""The port's CUDA paged-attention kernels against their plain PyTorch
+versions, on the card.
+
+Needs an NVIDIA GPU with nvcc (sm_90a); skips elsewhere.  Imports no JAX,
+so it runs where JAX is not installed:
+
+    PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
+
+Tolerances: float32 atol = rtol = 1e-4 (the kernel sums the 64-term dot
+products and the softmax in another order than cuBLAS; measured errors sit
+near 1e-6); bfloat16 atol = rtol = 2e-2 (both sides accumulate in f32 from
+the same bf16 inputs and round the output to bf16, one ulp of which is
+2^-8 near 1).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import paged_decode_attention as pda
+from repro_torch.kernels import paged_prefill_attention as ppa
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+       torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _pool(rng, N, KVH, bs, D, dtype, dev):
+    k = rng.standard_normal((N, KVH, bs, D)).astype(np.float32)
+    v = rng.standard_normal((N, KVH, bs, D)).astype(np.float32)
+    return (torch.tensor(k, dtype=dtype, device=dev),
+            torch.tensor(v, dtype=dtype, device=dev))
+
+
+def _table(rng, B, nb, N, live_blocks, dev):
+    """Distinct random pages for the live blocks, sentinel N + 3 after."""
+    bt = rng.permutation(N)[:B * nb].reshape(B, nb).astype(np.int32)
+    for b, n in enumerate(live_blocks):
+        bt[b, n:] = N + 3
+    return torch.tensor(bt, device=dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KVH,D,bs", [(32, 8, 64, 16), (4, 4, 64, 8),
+                                         (6, 2, 128, 16), (8, 1, 32, 4)])
+def test_paged_decode_kernel_matches_plain(dev, dtype, H, KVH, D, bs):
+    rng = np.random.default_rng(0)
+    lengths = np.array([1, bs, bs + 1, 5 * bs + 3, 100, 0], np.int32)
+    B, nb = len(lengths), 8
+    N = 4 * B * nb
+    q = torch.tensor(rng.standard_normal((B, H, D)), dtype=dtype, device=dev)
+    kp, vp = _pool(rng, N, KVH, bs, D, dtype, dev)
+    bt = _table(rng, B, nb, N, [-(-int(n) // bs) for n in lengths], dev)
+    ln = torch.tensor(np.minimum(lengths, nb * bs), device=dev)
+    before = pda.launches
+    out = pda.paged_decode_attention(q, kp, vp, bt, ln)
+    torch.cuda.synchronize()
+    assert pda.launches == before + 1
+    want = pda.paged_decode_attention_plain(q, kp, vp, bt, ln)
+    torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+    assert torch.count_nonzero(out[-1]) == 0       # no valid key -> 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KVH,D,bs,C", [(32, 8, 64, 16, 16),
+                                           (32, 8, 64, 16, 128),
+                                           (32, 8, 64, 16, 512),
+                                           (6, 2, 128, 16, 100),
+                                           (4, 4, 32, 8, 64)])
+def test_paged_prefill_kernel_matches_plain(dev, dtype, H, KVH, D, bs, C):
+    rng = np.random.default_rng(1)
+    starts = np.array([0, 21, 2 * bs, 300, 7], np.int32)
+    valid = np.array([C, C, C // 2 + 3, 0, C - 5], np.int32)
+    B = len(starts)
+    nb = -(-(int(starts.max()) + C) // bs)
+    N = 2 * B * nb
+    q = torch.tensor(rng.standard_normal((B, H, C, D)), dtype=dtype, device=dev)
+    ck = torch.tensor(rng.standard_normal((B, KVH, C, D)), dtype=dtype,
+                      device=dev)
+    cv = torch.tensor(rng.standard_normal((B, KVH, C, D)), dtype=dtype,
+                      device=dev)
+    kp, vp = _pool(rng, N, KVH, bs, D, dtype, dev)
+    bt = _table(rng, B, nb, N, [-(-int(s) // bs) for s in starts], dev)
+    st = torch.tensor(starts, device=dev)
+    vd = torch.tensor(valid, device=dev)
+    before = ppa.launches
+    out = ppa.paged_prefill_attention(q, kp, vp, ck, cv, bt, st, vd)
+    torch.cuda.synchronize()
+    assert ppa.launches == before + 1
+    want = ppa.paged_prefill_attention_plain(q, kp, vp, ck, cv, bt, st, vd)
+    for b, n in enumerate(valid):
+        torch.testing.assert_close(out[b, :, :n].float(),
+                                   want[b, :, :n].float(), **TOL[dtype])
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    rng = np.random.default_rng(2)
+    q = torch.randn(2, 4, 64, device=dev)
+    kp, vp = _pool(rng, 8, 2, 16, 64, torch.float32, dev)
+    bt = torch.zeros(2, 2, dtype=torch.int32, device=dev)
+    ln = torch.ones(2, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        pda.paged_decode_attention(q.half(), kp.half(), vp.half(), bt, ln)
+    with pytest.raises(TypeError):
+        pda.paged_decode_attention(q, kp, vp, bt.long(), ln)
+    with pytest.raises(ValueError):
+        pda.paged_decode_attention(q.transpose(0, 1).contiguous()
+                                   .transpose(0, 1), kp, vp, bt, ln)
+    with pytest.raises(ValueError):
+        pda.paged_decode_attention(q.cpu(), kp, vp, bt, ln)
