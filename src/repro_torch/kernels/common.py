@@ -2,7 +2,7 @@
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -26,29 +26,35 @@ def on_cpu(tensors: Dict[str, torch.Tensor]) -> bool:
 
 
 def check_cuda_inputs(kernel: str, floats: Dict[str, torch.Tensor],
-                      ints: Dict[str, torch.Tensor]) -> int:
+                      ints: Dict[str, torch.Tensor],
+                      int8s: Optional[Dict[str, torch.Tensor]] = None) -> int:
     """Raise unless every float input shares one supported dtype, every
-    index input is int32 and all are contiguous.  Returns the dtype code."""
+    index input is int32, every quantized input (``int8s``) is int8 and
+    all are contiguous.  Returns the dtype code."""
+    int8s = int8s or {}
     dtypes = {t.dtype for t in floats.values()}
     if len(dtypes) != 1 or next(iter(dtypes)) not in DTYPE_CODES:
         raise TypeError(f"{kernel}: float inputs must share one dtype of "
                         f"{list(DTYPE_CODES)}, got "
                         f"{({k: t.dtype for k, t in floats.items()})}")
-    for k, t in ints.items():
-        if t.dtype != torch.int32:
-            raise TypeError(f"{kernel}: {k} must be int32, got {t.dtype}")
-    for k, t in {**floats, **ints}.items():
+    for want, group in ((torch.int32, ints), (torch.int8, int8s)):
+        for k, t in group.items():
+            if t.dtype != want:
+                raise TypeError(f"{kernel}: {k} must be {want}, got "
+                                f"{t.dtype}")
+    for k, t in {**floats, **ints, **int8s}.items():
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: {k} must be contiguous")
     return DTYPE_CODES[next(iter(dtypes))]
 
 
-def launch(name: str, error_fn: str, device: torch.device,
+def launch(library: str, name: str, device: torch.device,
            pointers: Sequence[torch.Tensor], ints: Sequence[int]) -> None:
     """Launch the C function ``name(pointers..., ints..., stream)`` of
-    library ``name`` on the current stream of ``device``; raise if the
-    launch was refused (its cudaGetLastError, returned, is not 0)."""
-    lib = build.load(name)
+    library ``library`` (``csrc/<library>.cu``) on the current stream of
+    ``device``; raise if the launch was refused (its cudaGetLastError,
+    returned, is not 0)."""
+    lib = build.load(library)
     fn = getattr(lib, name)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * len(pointers)
@@ -58,7 +64,7 @@ def launch(name: str, error_fn: str, device: torch.device,
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(*[t.data_ptr() for t in pointers], *ints, stream)
     if rc != 0:
-        err = getattr(lib, error_fn)
+        err = getattr(lib, f"{library}_error_string")
         err.restype = ctypes.c_char_p
         err.argtypes = [ctypes.c_int]
         raise RuntimeError(f"{name} launch failed: cuda error {rc} "

@@ -1,8 +1,9 @@
-// Shared pieces of the paged decode and paged prefill attention kernels.
+// Shared pieces of the attention kernels: paged decode, paged prefill and
+// dense per-slot decode, each in float (f32 / bf16) and int8-KV variants.
 //
-// Both kernels run one CTA over a set of query rows that share one KV head
-// (the GQA group, times a tile of chunk positions for prefill) and fold key
-// tiles of kTileK keys into an f32 online softmax:
+// Every kernel runs one CTA over a set of query rows that share one KV
+// head (the GQA group, times a tile of chunk positions for prefill) and
+// folds key tiles of kTileK keys into an f32 online softmax:
 //
 //   scores  s[r][j] = (q[r] / sqrt(D)) . k[j]          (masked -> p = 0)
 //   m_new = max(m, max_j s),  p = exp(s - m_new),  alpha = exp(m - m_new)
@@ -19,6 +20,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace paged {
 
@@ -94,14 +96,48 @@ __device__ __forceinline__ void init_rows(const Shared& sh, int rows,
   for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
 }
 
+// Key/value sources.  A row is one (sequence or page, KV head, position)
+// of D elements, addressed by its flat index; key(row, d) / value(row, d)
+// return element d as f32.  The loaders below are templated on the source,
+// so the float and int8 kernels share one tile loop.
+
+// Rows stored in the compute type T (float32 or bfloat16).
+template <typename T>
+struct FloatKV {
+  const T* k;
+  const T* v;
+  __device__ __forceinline__ float key(size_t row, int d, int D) const {
+    return to_float(k[row * D + d]);
+  }
+  __device__ __forceinline__ float value(size_t row, int d, int D) const {
+    return to_float(v[row * D + d]);
+  }
+};
+
+// int8 rows with one scale per row, stored in the compute type S:
+// element = f32(x) * f32(scale), dequantized as the tile is loaded, so
+// device memory is read as int8 payload plus scales.
+template <typename S>
+struct Int8KV {
+  const int8_t* k;
+  const int8_t* v;
+  const S* k_scale;
+  const S* v_scale;
+  __device__ __forceinline__ float key(size_t row, int d, int D) const {
+    return (float)k[row * D + d] * to_float(k_scale[row]);
+  }
+  __device__ __forceinline__ float value(size_t row, int d, int D) const {
+    return (float)v[row * D + d] * to_float(v_scale[row]);
+  }
+};
+
 // Keys and values at logical positions [k0, k0 + nk) of one sequence,
 // read in place from its pages: position p lives in page bt_row[p / bs],
 // row p % bs.  The page id is clamped into the pool before any address is
 // formed, so a sentinel entry (>= N) can never fault; callers only ask
 // for live positions, whose pages are real.
-template <typename T>
-__device__ void load_page_tile(const Shared& sh, const T* __restrict__ k_pages,
-                               const T* __restrict__ v_pages,
+template <typename KV>
+__device__ void load_page_tile(const Shared& sh, const KV& kv,
                                const int* __restrict__ bt_row, int kvh,
                                int KVH, int bs, int D, int N, int k0, int nk) {
   for (int e = threadIdx.x; e < nk * D; e += kThreads) {
@@ -110,24 +146,24 @@ __device__ void load_page_tile(const Shared& sh, const T* __restrict__ k_pages,
     const int pos = k0 + j;
     int page = bt_row[pos / bs];
     page = page < 0 ? 0 : (page >= N ? N - 1 : page);
-    const size_t off = (((size_t)page * KVH + kvh) * bs + pos % bs) * D + d;
-    sh.k[j * (D + 1) + d] = to_float(k_pages[off]);
-    sh.v[j * D + d] = to_float(v_pages[off]);
+    const size_t row = ((size_t)page * KVH + kvh) * bs + pos % bs;
+    sh.k[j * (D + 1) + d] = kv.key(row, d, D);
+    sh.v[j * D + d] = kv.value(row, d, D);
   }
 }
 
-// Keys and values [j0, j0 + nk) of one (sequence, KV head) slice of a
-// contiguous (C, D) chunk.
-template <typename T>
-__device__ void load_chunk_tile(const Shared& sh, const T* __restrict__ ck,
-                                const T* __restrict__ cv, int D, int j0,
-                                int nk) {
+// Rows [j0, j0 + nk) of one contiguous (rows, D) slice whose first row has
+// flat index row0: a prefill chunk's own keys, or one (sequence, KV head)
+// of a dense per-slot cache.
+template <typename KV>
+__device__ void load_row_tile(const Shared& sh, const KV& kv, size_t row0,
+                              int D, int j0, int nk) {
   for (int e = threadIdx.x; e < nk * D; e += kThreads) {
     const int j = e / D;
     const int d = e - j * D;
-    const size_t off = (size_t)(j0 + j) * D + d;
-    sh.k[j * (D + 1) + d] = to_float(ck[off]);
-    sh.v[j * D + d] = to_float(cv[off]);
+    const size_t row = row0 + j0 + j;
+    sh.k[j * (D + 1) + d] = kv.key(row, d, D);
+    sh.v[j * D + d] = kv.value(row, d, D);
   }
 }
 
@@ -183,6 +219,25 @@ __device__ void fold_tile(const Shared& sh, int rows, int D, int nk,
     }
   }
   __syncthreads();  // sh.k / sh.v / sh.s may be overwritten now
+}
+
+// Write the rows x D accumulator tile, normalised, to ob (row r at
+// ob + r * D): acc / max(l, 1e-20), so a row that saw no key writes 0.
+template <typename T>
+__device__ void write_rows(T* __restrict__ ob, const Shared& sh, int rows,
+                           int D, const float (&acc)[kAcc]) {
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    if (idx < rows * D)
+      ob[idx] = from_float<T>(acc[i] / fmaxf(sh.l[idx / D], 1e-20f));
+  }
+}
+
+// Shape checks shared by the C entry points.
+inline bool valid_heads(int B, int H, int KVH, int D) {
+  return B >= 1 && KVH >= 1 && H % KVH == 0 && H / KVH <= kMaxRows &&
+         D >= 1 && D <= kMaxD;
 }
 
 }  // namespace paged

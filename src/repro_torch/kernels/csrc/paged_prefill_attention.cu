@@ -2,13 +2,18 @@
 // prompt chunk per sequence attend the sequence's prefix, read in place
 // from its KV pages, and then the chunk's own keys causally.
 //
-// Replaces the Pallas TPU kernel
-// src/repro/kernels/paged_prefill_attention.py::paged_prefill_attention.
+// Replaces the Pallas TPU kernels
+// src/repro/kernels/paged_prefill_attention.py::paged_prefill_attention and
+// ::paged_prefill_attention_quant (its int8 twin).
 //
 //   q            (B, H, C, D)       float32 or bfloat16; row c sits at
 //                                   absolute position starts[b] + c
-//   k/v_pages    (N, KVH, bs, D)    same type as q
-//   chunk_k/v    (B, KVH, C, D)     the chunk's own keys and values
+//   k/v_pages    (N, KVH, bs, D)    same type as q, or int8 (the quant twin)
+//   k/v_scale    (N, KVH, bs)       quant twin only: one scale per row, in
+//                                   q's type; a row is f32(x) * f32(scale)
+//   chunk_k/v    (B, KVH, C, D)     the chunk's own keys and values, q's
+//                                   type in both twins (the fresh float
+//                                   projections, never the int8 pages)
 //   block_table  (B, nb) int32      ids >= N are sentinels, clamped
 //   starts       (B,) int32         tokens already in pages
 //   valid        (B,) int32         real tokens in the chunk (0 = inactive)
@@ -27,16 +32,16 @@
 // live prefix page is read once per KV head and q tile, never densified
 // into a gathered copy, and both segments fold into one f32 online
 // softmax.  The products run on the CUDA cores, not the tensor cores:
-// this first version favours a simple, exact design.
+// this first version favours a simple, exact design.  The int8 twin
+// differs only in the prefix loader, which dequantizes each page row as
+// it lands in the f32 shared tile.
 #include "paged_attention.cuh"
 
 namespace paged {
 
-template <typename T>
+template <typename T, typename KV>
 __global__ void __launch_bounds__(kThreads)
-    paged_prefill_kernel(const T* __restrict__ q,
-                         const T* __restrict__ k_pages,
-                         const T* __restrict__ v_pages,
+    paged_prefill_kernel(const T* __restrict__ q, KV kv,
                          const T* __restrict__ chunk_k,
                          const T* __restrict__ chunk_v,
                          const int* __restrict__ block_table,
@@ -81,17 +86,18 @@ __global__ void __launch_bounds__(kThreads)
   const auto all = [](int, int) { return true; };
   for (int k0 = 0; k0 < n_prefix; k0 += kTileK) {
     const int nk = min(kTileK, n_prefix - k0);
-    load_page_tile(sh, k_pages, v_pages, bt_row, kvh, KVH, bs, D, N, k0, nk);
+    load_page_tile(sh, kv, bt_row, kvh, KVH, bs, D, N, k0, nk);
     fold_tile(sh, rows, D, nk, all, acc);
   }
 
   // the chunk's own keys, causal within the chunk and below valid[b]; keys
   // past this tile's last query are invisible to all of its rows
   const int n_chunk = min(vd, min(c0 + TQ, C));
-  const size_t kv0 = ((size_t)b * KVH + kvh) * C * D;
+  const FloatKV<T> chunk{chunk_k, chunk_v};
+  const size_t row0 = ((size_t)b * KVH + kvh) * C;
   for (int j0 = 0; j0 < n_chunk; j0 += kTileK) {
     const int nk = min(kTileK, n_chunk - j0);
-    load_chunk_tile(sh, chunk_k + kv0, chunk_v + kv0, D, j0, nk);
+    load_row_tile(sh, chunk, row0, D, j0, nk);
     const auto causal = [=](int r, int j) {
       return j0 + j <= c0 + r % TQ && j0 + j < vd;
     };
@@ -112,25 +118,31 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k_pages, const void* v_pages,
-           const void* chunk_k, const void* chunk_v, const int* block_table,
-           const int* starts, const int* valid, void* out, int B, int H,
-           int KVH, int C, int D, int N, int bs, int nb, int TQ,
-           cudaStream_t stream) {
+template <typename T, typename KV>
+int launch(const void* q, KV kv, const void* chunk_k, const void* chunk_v,
+           const int* block_table, const int* starts, const int* valid,
+           void* out, int B, int H, int KVH, int C, int D, int N, int bs,
+           int nb, cudaStream_t stream) {
+  // query positions per tile: the GQA group times TQ fills <= kMaxRows rows
+  const int fit = kMaxRows / (H / KVH);
+  const int TQ = C < fit ? C : fit;
   const size_t smem = shared_bytes((H / KVH) * TQ, D);
   if (smem > kDefaultSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
-        paged_prefill_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        paged_prefill_kernel<T, KV>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid((C + TQ - 1) / TQ, KVH, B);
-  paged_prefill_kernel<T><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k_pages, (const T*)v_pages, (const T*)chunk_k,
-      (const T*)chunk_v, block_table, starts, valid, (T*)out, H, KVH, C, D, N,
-      bs, nb, TQ);
+  paged_prefill_kernel<T, KV><<<grid, kThreads, smem, stream>>>(
+      (const T*)q, kv, (const T*)chunk_k, (const T*)chunk_v, block_table,
+      starts, valid, (T*)out, H, KVH, C, D, N, bs, nb, TQ);
   return (int)cudaGetLastError();
+}
+
+inline bool valid_dims(int B, int H, int KVH, int C, int D, int N, int bs,
+                       int nb) {
+  return valid_heads(B, H, KVH, D) && C >= 1 && N >= 1 && bs >= 1 && nb >= 1;
 }
 
 }  // namespace paged
@@ -142,25 +154,56 @@ extern "C" int paged_prefill_attention(
     const void* starts, const void* valid, void* out, int B, int H, int KVH,
     int C, int D, int N, int bs, int nb, int dtype, void* stream) {
   using namespace paged;
-  if (B < 1 || KVH < 1 || H % KVH != 0 || H / KVH > kMaxRows || C < 1 ||
-      D < 1 || D > kMaxD || N < 1 || bs < 1 || nb < 1)
+  if (!valid_dims(B, H, KVH, C, D, N, bs, nb))
     return (int)cudaErrorInvalidValue;
-  // query positions per tile: the GQA group times TQ fills <= kMaxRows rows
-  const int fit = kMaxRows / (H / KVH);
-  const int TQ = C < fit ? C : fit;
   const int* bt = (const int*)block_table;
   const int* st = (const int*)starts;
   const int* vd = (const int*)valid;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch<float>(q, k_pages, v_pages, chunk_k, chunk_v, bt, st, vd,
-                         out, B, H, KVH, C, D, N, bs, nb, TQ, s);
+    return launch<float>(
+        q, FloatKV<float>{(const float*)k_pages, (const float*)v_pages},
+        chunk_k, chunk_v, bt, st, vd, out, B, H, KVH, C, D, N, bs, nb, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k_pages, v_pages, chunk_k, chunk_v, bt, st,
-                                 vd, out, B, H, KVH, C, D, N, bs, nb, TQ, s);
+    return launch<__nv_bfloat16>(
+        q,
+        FloatKV<__nv_bfloat16>{(const __nv_bfloat16*)k_pages,
+                               (const __nv_bfloat16*)v_pages},
+        chunk_k, chunk_v, bt, st, vd, out, B, H, KVH, C, D, N, bs, nb, s);
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" const char* paged_prefill_error_string(int code) {
+// int8 pages, float chunk k/v; dtype (of q, the scales, the chunk and out):
+// 0 = float32, 1 = bfloat16.
+extern "C" int paged_prefill_attention_quant(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* k_scale, const void* v_scale, const void* chunk_k,
+    const void* chunk_v, const void* block_table, const void* starts,
+    const void* valid, void* out, int B, int H, int KVH, int C, int D, int N,
+    int bs, int nb, int dtype, void* stream) {
+  using namespace paged;
+  if (!valid_dims(B, H, KVH, C, D, N, bs, nb))
+    return (int)cudaErrorInvalidValue;
+  const int* bt = (const int*)block_table;
+  const int* st = (const int*)starts;
+  const int* vd = (const int*)valid;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int8_t* kq = (const int8_t*)k_pages;
+  const int8_t* vq = (const int8_t*)v_pages;
+  if (dtype == 0)
+    return launch<float>(
+        q,
+        Int8KV<float>{kq, vq, (const float*)k_scale, (const float*)v_scale},
+        chunk_k, chunk_v, bt, st, vd, out, B, H, KVH, C, D, N, bs, nb, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(
+        q,
+        Int8KV<__nv_bfloat16>{kq, vq, (const __nv_bfloat16*)k_scale,
+                              (const __nv_bfloat16*)v_scale},
+        chunk_k, chunk_v, bt, st, vd, out, B, H, KVH, C, D, N, bs, nb, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" const char* paged_prefill_attention_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }

@@ -1,15 +1,20 @@
 """Paged prefill-chunk attention: the queries of one prompt chunk per
 sequence attend the sequence's page-resident prefix and, causally, the
-chunk's own keys.
+chunk's own keys; in float and with int8 prefix pages.
 
-Replaces the Pallas TPU kernel
+Replaces the Pallas TPU kernels
 ``src/repro/kernels/paged_prefill_attention.py::paged_prefill_attention``
-with the hand-written CUDA kernel ``csrc/paged_prefill_attention.cu``
-(``sm_90a``), bound through ``ctypes``.
+and ``::paged_prefill_attention_quant`` with the hand-written CUDA kernels
+of ``csrc/paged_prefill_attention.cu`` (``sm_90a``), bound through
+``ctypes``.
 
   q            (B, H, C, D)     row c at absolute position starts[b] + c
-  k/v_pages    (N, KVH, bs, D)  the page pool (see paged_decode_attention)
-  chunk_k/v    (B, KVH, C, D)   the chunk's own keys and values
+  k/v_pages    (N, KVH, bs, D)  the page pool (see paged_decode_attention),
+                                q's dtype or int8 (the quant twin)
+  k/v_scale    (N, KVH, bs)     quant twin only: per-row scales, q's dtype
+  chunk_k/v    (B, KVH, C, D)   the chunk's own keys and values, q's dtype
+                                in both twins: the fresh projections, not
+                                a read-back of the int8 pages
   block_table  (B, nb) int32    ids >= N are sentinels: reads clamp
   starts       (B,) int32       tokens already in pages
   valid        (B,) int32       real tokens in the chunk, 0 = inactive row
@@ -25,10 +30,12 @@ output, at 3.35 TB/s (at the engine's chunk lengths the flops stay under
 the tensor-core line).  The kernel streams the prefix pages in place,
 without densifying them, once per KV head and tile of at most 64 query
 rows (the GQA group times a tile of chunk positions), and folds prefix and
-chunk into one f32 online softmax.
+chunk into one f32 online softmax; the int8 twin dequantizes prefix rows
+as they enter the f32 shared tile.
 
-On a CPU tensor the wrapper runs ``paged_prefill_attention_plain``; on a
-CUDA tensor it launches the kernel or raises.
+On CPU tensors the wrappers run ``paged_prefill_attention_plain`` /
+``paged_prefill_attention_quant_plain``; on CUDA tensors they launch the
+kernel or raise.
 """
 from __future__ import annotations
 
@@ -37,29 +44,28 @@ import math
 import torch
 
 from repro_torch.kernels.common import check_cuda_inputs, launch, on_cpu
-from repro_torch.kernels.paged_decode_attention import (gather_pages,
-                                                        masked_softmax_attend)
+from repro_torch.kernels.decode_attention import (dequantize_rows,
+                                                  masked_softmax_attend)
+from repro_torch.kernels.paged_decode_attention import gather_pages
 
-# launches of the CUDA kernel in this process (the plain version does not
-# count); reset by whoever reads it
+# launches of the float and the int8 CUDA kernel in this process (the
+# plain versions do not count); reset by whoever reads them
 launches = 0
+quant_launches = 0
 
 
-def paged_prefill_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
-                                  v_pages: torch.Tensor,
-                                  chunk_k: torch.Tensor,
-                                  chunk_v: torch.Tensor,
-                                  block_table: torch.Tensor,
-                                  starts: torch.Tensor,
-                                  valid: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the kernel (same contract)."""
+def _prefill_plain(q: torch.Tensor, k_prefix: torch.Tensor,
+                   v_prefix: torch.Tensor, chunk_k: torch.Tensor,
+                   chunk_v: torch.Tensor, starts: torch.Tensor,
+                   valid: torch.Tensor) -> torch.Tensor:
+    """Both segments in f32: the dense prefix (B, KVH, S, D), masked to
+    positions < starts, then the chunk's keys, causal and < valid."""
     B, H, C, D = q.shape
-    KVH, bs = k_pages.shape[1], k_pages.shape[2]
-    S = block_table.shape[1] * bs
+    KVH, S = k_prefix.shape[1], k_prefix.shape[2]
     G = H // KVH
     dev = q.device
-    k = torch.cat([gather_pages(k_pages, block_table), chunk_k.float()], dim=2)
-    v = torch.cat([gather_pages(v_pages, block_table), chunk_v.float()], dim=2)
+    k = torch.cat([k_prefix, chunk_k.float()], dim=2)
+    v = torch.cat([v_prefix, chunk_v.float()], dim=2)
     qg = q.reshape(B, KVH, G, C, D).float()
     s = torch.matmul(qg, k[:, :, None].transpose(-1, -2)) \
         / math.sqrt(D)                                          # (B,KVH,G,C,S+C)
@@ -73,6 +79,62 @@ def paged_prefill_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
     mask = torch.cat([prefix, chunk], dim=-1)[:, None, None]   # (B,1,1,C,S+C)
     out = masked_softmax_attend(s, mask, v[:, :, None])
     return out.reshape(B, H, C, D).to(q.dtype)
+
+
+def paged_prefill_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
+                                  v_pages: torch.Tensor,
+                                  chunk_k: torch.Tensor,
+                                  chunk_v: torch.Tensor,
+                                  block_table: torch.Tensor,
+                                  starts: torch.Tensor,
+                                  valid: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the float kernel (same contract)."""
+    return _prefill_plain(q, gather_pages(k_pages, block_table),
+                          gather_pages(v_pages, block_table), chunk_k,
+                          chunk_v, starts, valid)
+
+
+def paged_prefill_attention_quant_plain(
+        q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+        k_scale: torch.Tensor, v_scale: torch.Tensor, chunk_k: torch.Tensor,
+        chunk_v: torch.Tensor, block_table: torch.Tensor,
+        starts: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the int8 kernel (same contract): the
+    prefix dequantized in f32, the chunk's keys as given."""
+    k = dequantize_rows(gather_pages(k_pages, block_table),
+                        gather_pages(k_scale, block_table))
+    v = dequantize_rows(gather_pages(v_pages, block_table),
+                        gather_pages(v_scale, block_table))
+    return _prefill_plain(q, k, v, chunk_k, chunk_v, starts, valid)
+
+
+def _check_shapes(name: str, q: torch.Tensor, k_pages: torch.Tensor,
+                  v_pages: torch.Tensor, chunk_k: torch.Tensor,
+                  chunk_v: torch.Tensor, block_table: torch.Tensor,
+                  starts: torch.Tensor, valid: torch.Tensor) -> None:
+    if q.dim() != 4 or k_pages.dim() != 4:
+        raise ValueError(f"{name}: q must be (B, H, C, D) and pages (N, KVH, "
+                         f"bs, D), got {tuple(q.shape)} and "
+                         f"{tuple(k_pages.shape)}")
+    B, H, C, D = q.shape
+    KVH = k_pages.shape[1]
+    if v_pages.shape != k_pages.shape or k_pages.shape[3] != D or H % KVH \
+            or chunk_k.shape != (B, KVH, C, D) \
+            or chunk_v.shape != chunk_k.shape:
+        raise ValueError(f"{name}: shape mismatch: q {tuple(q.shape)}, pages "
+                         f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)}, "
+                         f"chunk k/v {tuple(chunk_k.shape)}/"
+                         f"{tuple(chunk_v.shape)}")
+    if H // KVH > 64 or D > 128:
+        raise ValueError(f"{name}: the kernel takes at most 64 query heads "
+                         f"per KV head and head_dim <= 128, got {H // KVH} "
+                         f"and {D}")
+    if block_table.dim() != 2 or block_table.shape[0] != B \
+            or block_table.shape[1] < 1 or tuple(starts.shape) != (B,) \
+            or tuple(valid.shape) != (B,):
+        raise ValueError(f"{name}: block_table must be (B, nb >= 1), starts "
+                         f"and valid (B,), got {tuple(block_table.shape)}, "
+                         f"{tuple(starts.shape)}, {tuple(valid.shape)}")
 
 
 def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -95,32 +157,60 @@ def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
         {"q": q, "k_pages": k_pages, "v_pages": v_pages, "chunk_k": chunk_k,
          "chunk_v": chunk_v},
         {"block_table": block_table, "starts": starts, "valid": valid})
-    if q.dim() != 4 or k_pages.dim() != 4:
-        raise ValueError(f"q must be (B, H, C, D) and pages (N, KVH, bs, D), "
-                         f"got {tuple(q.shape)} and {tuple(k_pages.shape)}")
+    _check_shapes("paged_prefill_attention", q, k_pages, v_pages, chunk_k,
+                  chunk_v, block_table, starts, valid)
     B, H, C, D = q.shape
-    N, KVH, bs, Dk = k_pages.shape
-    if v_pages.shape != k_pages.shape or Dk != D or H % KVH \
-            or chunk_k.shape != (B, KVH, C, D) \
-            or chunk_v.shape != chunk_k.shape:
-        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, pages "
-                         f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)}, "
-                         f"chunk k/v {tuple(chunk_k.shape)}/"
-                         f"{tuple(chunk_v.shape)}")
-    if H // KVH > 64 or D > 128:
-        raise ValueError(f"the kernel takes at most 64 query heads per KV "
-                         f"head and head_dim <= 128, got {H // KVH} and {D}")
-    if block_table.dim() != 2 or block_table.shape[0] != B \
-            or block_table.shape[1] < 1 or tuple(starts.shape) != (B,) \
-            or tuple(valid.shape) != (B,):
-        raise ValueError(f"block_table must be (B, nb >= 1), starts and valid "
-                         f"(B,), got {tuple(block_table.shape)}, "
-                         f"{tuple(starts.shape)}, {tuple(valid.shape)}")
+    N, KVH, bs, _ = k_pages.shape
     nb = block_table.shape[1]
     out = torch.empty_like(q)
-    launch("paged_prefill_attention", "paged_prefill_error_string", q.device,
+    launch("paged_prefill_attention", "paged_prefill_attention", q.device,
            [q, k_pages, v_pages, chunk_k, chunk_v, block_table, starts, valid,
             out],
            [B, H, KVH, C, D, N, bs, nb, dtype])
     launches += 1
+    return out
+
+
+def paged_prefill_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
+                                  v_pages: torch.Tensor,
+                                  k_scale: torch.Tensor,
+                                  v_scale: torch.Tensor,
+                                  chunk_k: torch.Tensor,
+                                  chunk_v: torch.Tensor,
+                                  block_table: torch.Tensor,
+                                  starts: torch.Tensor,
+                                  valid: torch.Tensor) -> torch.Tensor:
+    """Paged prefill-chunk attention over an int8 prefix: the CUDA kernel
+    for CUDA tensors, the plain version for CPU tensors."""
+    global quant_launches
+    inputs = {"q": q, "k_pages": k_pages, "v_pages": v_pages,
+              "k_scale": k_scale, "v_scale": v_scale, "chunk_k": chunk_k,
+              "chunk_v": chunk_v, "block_table": block_table,
+              "starts": starts, "valid": valid}
+    if on_cpu(inputs):
+        return paged_prefill_attention_quant_plain(
+            q, k_pages, v_pages, k_scale, v_scale, chunk_k, chunk_v,
+            block_table, starts, valid)
+    dtype = check_cuda_inputs(
+        "paged_prefill_attention_quant",
+        {"q": q, "k_scale": k_scale, "v_scale": v_scale, "chunk_k": chunk_k,
+         "chunk_v": chunk_v},
+        {"block_table": block_table, "starts": starts, "valid": valid},
+        {"k_pages": k_pages, "v_pages": v_pages})
+    _check_shapes("paged_prefill_attention_quant", q, k_pages, v_pages,
+                  chunk_k, chunk_v, block_table, starts, valid)
+    if k_scale.shape != k_pages.shape[:3] or v_scale.shape != k_scale.shape:
+        raise ValueError(f"paged_prefill_attention_quant: scale pages must "
+                         f"be {tuple(k_pages.shape[:3])}, got "
+                         f"{tuple(k_scale.shape)} and {tuple(v_scale.shape)}")
+    B, H, C, D = q.shape
+    N, KVH, bs, _ = k_pages.shape
+    nb = block_table.shape[1]
+    out = torch.empty_like(q)
+    launch("paged_prefill_attention", "paged_prefill_attention_quant",
+           q.device,
+           [q, k_pages, v_pages, k_scale, v_scale, chunk_k, chunk_v,
+            block_table, starts, valid, out],
+           [B, H, KVH, C, D, N, bs, nb, dtype])
+    quant_launches += 1
     return out

@@ -3,10 +3,14 @@
 Runs the full QLM stack — request groups, virtual queues, RWT estimator,
 global scheduler, LSO agents — against a Poisson workload and prints SLO
 attainment and throughput, with every engine serving through the CUDA
-paged-attention kernels (or, with ``--device cpu``, their plain versions).
+attention kernels (or, with ``--device cpu``, their plain versions):
+``--backend paged-cuda`` (the default) over the KV page pool, ``--backend
+cuda`` over dense per-slot caches, which also serve sliding-window models.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
       --requests 40 --rate 2.0
+  PYTHONPATH=src python -m repro_torch.launch.serve --backend cuda \
+      --arch2 h2o-danube-1.8b          # two models: the swap LSO
 
 The registry holds the reduced config of each arch, as the reference CLI
 does (``src/repro/launch/serve.py``); ``--routing`` and
@@ -199,7 +203,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--decode-burst", type=int, default=1,
                     help="decode iterations per engine round trip "
                          "(QLMAgent.run_iteration drives steps())")
-    ap.add_argument("--backend", default=None, choices=[None, "paged-cuda"])
+    ap.add_argument("--backend", default=None,
+                    choices=[None, "cuda", "paged-cuda"],
+                    help="attention backend: None / paged-cuda = the KV page "
+                         "pool (full attention only), cuda = dense per-slot "
+                         "caches (sliding-window models too)")
     ap.add_argument("--prefix-sharing", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="refcounted shared-prefix KV pages")

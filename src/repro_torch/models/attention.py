@@ -1,27 +1,47 @@
-"""GQA attention over the paged KV pool (PyTorch twin of the paged subset of
-``src/repro/models/attention.py``).
+"""GQA attention over the KV cache (PyTorch twin of the serving subset of
+``src/repro/models/attention.py``): the paged page pool and the dense
+per-slot cache, each in float and with int8 KV (``cfg.kv_quant``).
 
-The pool of one layer is ``{"k": (num_blocks + 1, KVH, block_size, D),
-"v": ...}``: logical position ``p`` of a sequence lives in page
+Caches are dicts of tensors updated in place: ``{"k", "v"}``, plus
+``{"k_scale", "v_scale"}`` (one scale per row, in the model's dtype) when
+``cfg.kv_quant`` stores k/v as int8 rows (``_quantize_kv``).
+
+**Paged pool** (one layer): ``k``/``v`` ``(num_blocks + 1, KVH,
+block_size, D)``: logical position ``p`` of a sequence lives in page
 ``block_table[p // block_size]`` at row ``p % block_size``.  Page
 ``num_blocks`` is a write sink: a write aimed at a sentinel page id
 (``>= num_blocks``: inactive batch rows, blocks not yet allocated) lands
 there instead of being dropped, which keeps the write a single
 ``index_put_`` with no host sync.  The sink is never read: the kernels see
-only ``pool[:num_blocks]`` and clamp sentinel reads into it.
+only ``pool[:num_blocks]`` and clamp sentinel reads into it.  Pages are
+written in place BEFORE attention reads the pool: the chunk's writes land
+at positions ``>= starts`` while the prefix segment reads only positions
+``< starts``, so the attended values equal a pre-write read.
 
-Pages are written in place BEFORE attention reads the pool.  The chunk's
-writes land at positions ``>= starts`` while the prefix segment reads only
-positions ``< starts``, so the attended values equal a pre-write read.
+**Dense cache** (one layer): ``k``/``v`` ``(B, KVH, S + 1, D)`` with
+``S = cache_len(cfg, max_seq)``: slot ``s < S`` holds position ``s`` (full
+attention) or the latest position ``p`` with ``p % S == s`` (rolling
+sliding-window cache).  Column ``S`` is the write sink that takes the
+writes JAX drops as out of range (inactive chunk tokens, finished slots
+idling in a decode burst); nothing reads it.  A rolling chunk step may
+overwrite slots its own queries still attend, so it reads the cache
+BEFORE the write (the reference's functional read); full attention reads
+after it, as the paged pool does.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.paged_decode_attention import paged_decode_attention
-from repro_torch.kernels.paged_prefill_attention import paged_prefill_attention
+import math
+
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  decode_attention_quant)
+from repro_torch.kernels.paged_decode_attention import (
+    paged_decode_attention, paged_decode_attention_quant)
+from repro_torch.kernels.paged_prefill_attention import (
+    paged_prefill_attention, paged_prefill_attention_quant)
 from repro_torch.models import layers
 
 
@@ -48,6 +68,52 @@ def paged_kv_shape(cfg, num_blocks: int, block_size: int) -> Tuple[int, ...]:
             cfg.resolved_head_dim)
 
 
+def cache_len(cfg, max_seq: int) -> int:
+    """Materialized dense cache length: rolling window for SWA, else
+    max_seq."""
+    if cfg.sliding_window is not None:
+        return min(max_seq, cfg.sliding_window)
+    return max_seq
+
+
+def dense_kv_shape(cfg, batch: int, max_seq: int) -> Tuple[int, ...]:
+    """Shape of one layer's dense k (or v) cache: ``cache_len`` slots per
+    sequence plus the write sink column."""
+    return (batch, cfg.num_kv_heads, cache_len(cfg, max_seq) + 1,
+            cfg.resolved_head_dim)
+
+
+def kv_buffers(cfg, shape: Tuple[int, ...], dtype: torch.dtype,
+               device: torch.device) -> Dict[str, torch.Tensor]:
+    """Zeroed cache leaves for k/v rows of ``shape`` (..., D): ``dtype``
+    rows, or int8 rows with ``dtype`` scales of ``shape[:-1]`` when
+    ``cfg.kv_quant``."""
+    if cfg.kv_quant:
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:-1], dtype=dtype,
+                                       device=device),
+                "v_scale": torch.zeros(shape[:-1], dtype=dtype,
+                                       device=device)}
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (..., D) -> (int8 values, per-row scale in x's dtype), bit for bit
+    the reference's: f32 amax, scale floored at 1e-8, round half to even,
+    clip to +-127."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(x.dtype)
+
+
+def _dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                   dtype: torch.dtype) -> torch.Tensor:
+    return (q.float() * scale[..., None].float()).to(dtype)
+
+
 def _project_qkv(params, cfg, x: torch.Tensor, positions: torch.Tensor):
     """x: (B, L, d) -> q (B, L, H, hd), k/v (B, L, KVH, hd), with RoPE."""
     B, L, _ = x.shape
@@ -67,17 +133,57 @@ def _project_qkv(params, cfg, x: torch.Tensor, positions: torch.Tensor):
     return q, k, v
 
 
-def _write_pages(pool: Dict[str, torch.Tensor], k: torch.Tensor,
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """q: (B, H, Lq, D), k/v: (B, KVH, Lkv, D), GQA by head-group reshape;
+    mask broadcastable to (B, 1, Lq, Lkv), True = attend.  Scores and
+    softmax in f32, probabilities cast to v's dtype for the value product,
+    as the reference's ``_sdpa``."""
+    B, H, Lq, D = q.shape
+    KVH = k.shape[1]
+    qg = q.reshape(B, KVH, H // KVH, Lq, D)
+    scores = torch.matmul(qg.float(), k[:, :, None].float().transpose(-1, -2)) \
+        * (1.0 / math.sqrt(D))
+    if mask is not None:
+        scores = scores.masked_fill(~mask[:, :, None], -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.matmul(probs.to(v.dtype), v[:, :, None])
+    return out.reshape(B, H, Lq, D).to(v.dtype)
+
+
+def _write_rows(cfg, cache: Dict[str, torch.Tensor], k: torch.Tensor,
+                v: torch.Tensor, i0: torch.Tensor, i1: torch.Tensor) -> None:
+    """Scatter per-token k/v (..., KVH, D) into every leaf at ``[i0, :,
+    i1]`` (page and row of a page pool; sequence and slot of a dense
+    cache), in place, quantizing first for int8 leaves.  ``i0``/``i1``
+    broadcast to the leading dims of k/v."""
+    if cfg.kv_quant:
+        kq, ks = _quantize_kv(k)
+        vq, vs = _quantize_kv(v)
+        rows = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    else:
+        rows = {"k": k, "v": v}
+    i0, i1 = i0.long(), i1.long()
+    for name, val in rows.items():
+        cache[name][i0, :, i1] = val.to(cache[name].dtype)
+
+
+def _write_pages(cfg, pool: Dict[str, torch.Tensor], k: torch.Tensor,
                  v: torch.Tensor, page: torch.Tensor,
                  offset: torch.Tensor) -> None:
     """Scatter per-token k/v (..., KVH, D) into the pool at (page, offset),
     in place.  ``page``/``offset`` share the leading dims of k/v; sentinel
     page ids (>= num_blocks) are redirected to the write sink."""
     sink = pool["k"].shape[0] - 1
-    page = torch.clamp(page, max=sink).long()
-    offset = offset.long()
-    pool["k"][page, :, offset] = k.to(pool["k"].dtype)
-    pool["v"][page, :, offset] = v.to(pool["v"].dtype)
+    _write_rows(cfg, pool, k, v, torch.clamp(page, max=sink), offset)
+
+
+def _live_pages(cfg, pool: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    """The pool without its sink page, as the kernels take it: (k, v) or
+    (k, v, k_scale, v_scale)."""
+    n = pool["k"].shape[0] - 1
+    names = ("k", "v", "k_scale", "v_scale") if cfg.kv_quant else ("k", "v")
+    return tuple(pool[name][:n] for name in names)
 
 
 def attend_decode_paged(params, cfg, x: torch.Tensor, lengths: torch.Tensor,
@@ -88,8 +194,9 @@ def attend_decode_paged(params, cfg, x: torch.Tensor, lengths: torch.Tensor,
     x: (B, 1, d); lengths: (B,) int32 tokens already cached (= the new
     token's position); block_table: (B, nb) int32.  The new token's k/v is
     written at page ``block_table[b, pos // bs]`` row ``pos % bs`` (to the
-    sink when that block is unallocated) before the kernel attends the
-    inclusive ``lengths + 1`` tokens.  Returns (B, 1, d).
+    sink when that block is unallocated) before the kernel (its int8 twin
+    for an int8 pool) attends the inclusive ``lengths + 1`` tokens.
+    Returns (B, 1, d).
     """
     B = x.shape[0]
     num_blocks, bs = pool["k"].shape[0] - 1, pool["k"].shape[2]
@@ -99,10 +206,11 @@ def attend_decode_paged(params, cfg, x: torch.Tensor, lengths: torch.Tensor,
     page = torch.gather(block_table, 1,
                         logical.clamp(max=nb - 1)[:, None].long())[:, 0]
     page = torch.where(logical < nb, page, num_blocks)
-    _write_pages(pool, k[:, 0], v[:, 0], page, lengths % bs)
-    attn = paged_decode_attention(q[:, 0].contiguous(), pool["k"][:num_blocks],
-                                  pool["v"][:num_blocks], block_table,
-                                  lengths + 1)
+    _write_pages(cfg, pool, k[:, 0], v[:, 0], page, lengths % bs)
+    kernel = paged_decode_attention_quant if cfg.kv_quant \
+        else paged_decode_attention
+    attn = kernel(q[:, 0].contiguous(), *_live_pages(cfg, pool), block_table,
+                  lengths + 1)
     return attn.reshape(B, 1, cfg.num_heads * cfg.resolved_head_dim) \
         @ params["wo"]
 
@@ -127,12 +235,134 @@ def attend_prefill_chunk_paged(params, cfg, x: torch.Tensor,
     logical = positions // bs
     page = torch.gather(block_table, 1, logical.clamp(0, nb - 1).long())
     page = torch.where(in_chunk & (logical < nb), page, num_blocks)
-    _write_pages(pool, k, v, page, positions % bs)
-    attn = paged_prefill_attention(
-        q.transpose(1, 2).contiguous(), pool["k"][:num_blocks],
-        pool["v"][:num_blocks], k.transpose(1, 2).contiguous(),
-        v.transpose(1, 2).contiguous(), block_table,
-        positions[:, 0].to(torch.int32).contiguous(), valid)
+    _write_pages(cfg, pool, k, v, page, positions % bs)
+    # the chunk's own keys are the fresh float projections, never a
+    # read-back of (int8) pages
+    kernel = paged_prefill_attention_quant if cfg.kv_quant \
+        else paged_prefill_attention
+    attn = kernel(
+        q.transpose(1, 2).contiguous(), *_live_pages(cfg, pool),
+        k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous(),
+        block_table, positions[:, 0].to(torch.int32).contiguous(), valid)
     out = attn.transpose(1, 2).reshape(B, C, cfg.num_heads
                                        * cfg.resolved_head_dim)
     return out @ params["wo"]
+
+
+# ---------------------------------------------------------------------------
+# dense per-slot cache
+# ---------------------------------------------------------------------------
+
+def _read_dense(cfg, cache: Dict[str, torch.Tensor], S: int,
+                dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cache's S real slots as (B, KVH, S, D) k/v: views of a float
+    cache, or int8 rows dequantized to ``dtype`` (the reference's non-kernel
+    paths cast to the activations' dtype)."""
+    if cfg.kv_quant:
+        return (_dequantize_kv(cache["k"][:, :, :S], cache["k_scale"][:, :, :S],
+                               dtype),
+                _dequantize_kv(cache["v"][:, :, :S], cache["v_scale"][:, :, :S],
+                               dtype))
+    return cache["k"][:, :, :S], cache["v"][:, :, :S]
+
+
+def attend_prefill_chunk(params, cfg, x: torch.Tensor,
+                         positions: torch.Tensor, valid: torch.Tensor,
+                         cache: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """One prefill chunk per row against the dense per-slot cache.
+
+    x: (B, C, d) right-padded chunk; positions: (B, C) absolute positions
+    (row b starts at ``starts[b] = positions[b, 0]``); valid: (B,) real
+    tokens per row (0 = inactive: writes go to the sink, output ignored).
+    The chunk's k/v are written at their slots (``pos % S`` for a rolling
+    SWA cache); attention runs over two segments, the pre-chunk cache and
+    the chunk's own fresh keys, with the reference's masks.  A rolling
+    cache is read before the write (the chunk may overwrite slots its
+    queries still attend); full attention after it (its writes land at
+    slots the cache segment masks).  Returns (B, C, d).
+    """
+    B, C, _ = x.shape
+    S = cache["k"].shape[2] - 1
+    swa = cfg.sliding_window is not None
+    q, k, v = _project_qkv(params, cfg, x, positions)  # k/v: (B, C, KVH, hd)
+    starts = positions[:, 0]
+    qh = q.transpose(1, 2)                                       # (B, H, C, hd)
+    kh = k.transpose(1, 2)                                       # (B, KVH, C, hd)
+    vh = v.transpose(1, 2)
+
+    def both_segments():
+        old_k, old_v = _read_dense(cfg, cache, S, x.dtype)
+        return torch.cat([old_k, kh], dim=2), torch.cat([old_v, vh], dim=2)
+
+    in_chunk = torch.arange(C, device=x.device)[None, :] < valid[:, None]
+    slot = torch.remainder(positions, S) if swa else positions
+    write_slot = torch.clamp(torch.where(in_chunk, slot, S), max=S)
+    if swa:
+        k_all, v_all = both_segments()                # the pre-write cache
+    _write_rows(cfg, cache, k, v,
+                torch.arange(B, device=x.device)[:, None], write_slot)
+    if not swa:
+        k_all, v_all = both_segments()
+
+    q_pos = positions[:, :, None]                                # (B, C, 1)
+    s_idx = torch.arange(S, device=x.device)[None, None, :]      # (1, 1, S)
+    if swa:
+        # slot s of the pre-chunk cache holds the largest position
+        # p <= start - 1 with p % S == s (negative: never written)
+        prev = (starts - 1)[:, None, None]
+        p_s = prev - torch.remainder(prev - s_idx, S)
+        cache_mask = (p_s >= 0) & (p_s > q_pos - cfg.sliding_window)
+    else:
+        cache_mask = (s_idx < starts[:, None, None]).expand(B, C, S)
+    j_idx = torch.arange(C, device=x.device)[None, None, :]
+    p_j = starts[:, None, None] + j_idx
+    chunk_mask = (p_j <= q_pos) & (j_idx < valid[:, None, None])
+    if swa:
+        chunk_mask = chunk_mask & (p_j > q_pos - cfg.sliding_window)
+    mask = torch.cat([cache_mask, chunk_mask], dim=-1)[:, None]
+
+    out = _sdpa(qh, k_all, v_all, mask)
+    out = out.transpose(1, 2).reshape(B, C, cfg.num_heads
+                                      * cfg.resolved_head_dim)
+    return out @ params["wo"]
+
+
+def attend_decode(params, cfg, x: torch.Tensor, lengths: torch.Tensor,
+                  cache: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """One-token decode against the dense per-slot cache.
+
+    x: (B, 1, d); lengths: (B,) int32 tokens already cached (= the new
+    token's position).  The new token's k/v is written at slot ``lengths``
+    (``lengths % S`` rolling; the sink past the end), then full attention
+    runs the dense decode kernel (its int8 twin for an int8 cache) over the
+    inclusive ``lengths + 1`` rows, and a rolling SWA cache masks slots by
+    the position they hold, in plain ops, as the reference does outside
+    Pallas.  Returns (B, 1, d).
+    """
+    B = x.shape[0]
+    S = cache["k"].shape[2] - 1
+    q, k, v = _project_qkv(params, cfg, x, lengths[:, None])
+    swa = cfg.sliding_window is not None
+    slot = torch.remainder(lengths, S) if swa else torch.clamp(lengths, max=S)
+    _write_rows(cfg, cache, k[:, 0], v[:, 0],
+                torch.arange(B, device=x.device), slot)
+    if not swa:
+        # a finished slot idling in a burst sits at lengths == S: clamp so
+        # the kernel never reads the sink column
+        kv_valid = torch.clamp(lengths + 1, max=S)
+        q1 = q[:, 0].contiguous()
+        if cfg.kv_quant:
+            attn = decode_attention_quant(q1, cache["k"], cache["v"],
+                                          cache["k_scale"], cache["v_scale"],
+                                          kv_valid)
+        else:
+            attn = decode_attention(q1, cache["k"], cache["v"], kv_valid)
+    else:
+        kv_pos = torch.arange(S, device=x.device)[None, :]
+        held = lengths[:, None] - torch.remainder(lengths[:, None] - kv_pos, S)
+        live = (held >= 0) & (held >= lengths[:, None] - (S - 1))
+        k_all, v_all = _read_dense(cfg, cache, S, x.dtype)
+        attn = _sdpa(q.transpose(1, 2), k_all, v_all,
+                     live[:, None, None, :])[:, :, 0]
+    return attn.reshape(B, 1, cfg.num_heads * cfg.resolved_head_dim) \
+        @ params["wo"]

@@ -1,12 +1,16 @@
 """Model interface of the port (twin of ``src/repro/models/model_factory.py``
-for ``arch_type == "dense"``, paged serving paths only).
+for ``arch_type == "dense"``, chunked serving paths only).
 
 ``build_model(cfg)`` returns a ``Model`` with:
   * ``init(gen, dtype, device)``  -> params (random, from ``gen``)
+  * ``init_cache(batch, max_seq, dtype, device)`` -> dense per-slot caches
+  * ``prefill_chunk(params, cache, tokens, starts, valid)``
+  * ``decode_step(params, cache, tokens, lengths)``
   * ``init_paged_cache(num_blocks, block_size, dtype, device)`` -> page pools
   * ``prefill_chunk_paged(params, cache, tokens, starts, valid, block_table)``
   * ``decode_step_paged(params, cache, tokens, lengths, block_table)``
-Both serving paths return ``(logits, cache)`` and update the cache in place.
+Every serving path returns ``(logits, cache)`` and updates the cache in
+place; ``cfg.kv_quant`` makes every cache int8 with per-row scales.
 """
 from __future__ import annotations
 
@@ -24,6 +28,9 @@ from repro_torch.models import transformer
 class Model:
     cfg: ModelConfig
     init: Callable
+    init_cache: Callable
+    prefill_chunk: Callable
+    decode_step: Callable
     init_paged_cache: Callable
     prefill_chunk_paged: Callable
     decode_step_paged: Callable
@@ -38,6 +45,14 @@ def build_model(cfg: ModelConfig) -> Model:
         cfg=cfg,
         init=lambda gen, dtype=torch.float32, device="cuda":
             transformer.init_lm(gen, cfg, dtype, resolve_device(device)),
+        init_cache=lambda batch, max_seq, dtype=torch.float32, device="cuda":
+            transformer.init_cache(cfg, batch, max_seq, dtype,
+                                   resolve_device(device)),
+        prefill_chunk=lambda params, cache, tokens, starts, valid:
+            transformer.prefill_chunk(params, cfg, tokens, starts, valid,
+                                      cache),
+        decode_step=lambda params, cache, tokens, lengths:
+            transformer.decode_step(params, cfg, tokens, lengths, cache),
         init_paged_cache=lambda num_blocks, block_size, dtype=torch.float32,
         device="cuda": transformer.init_paged_cache(
             cfg, num_blocks, block_size, dtype, resolve_device(device)),

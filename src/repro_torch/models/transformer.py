@@ -1,16 +1,18 @@
-"""Dense decoder-only transformer LM over the paged KV pool (PyTorch twin of
-the paged serving subset of ``src/repro/models/transformer.py``).
+"""Dense decoder-only transformer LM over the KV cache (PyTorch twin of
+the serving subset of ``src/repro/models/transformer.py``): chunked
+prefill and decode, over the paged KV pool or the dense per-slot cache.
 
 Params are nested dicts: ``{"embed", "final_norm", ["lm_head"], "blocks":
 [per-layer dict, ...]}`` — one dict per layer instead of the reference's
 leaves stacked on a leading ``layers`` axis for ``lax.scan`` (the forward
 is a Python loop over layers; ``models/convert.py`` unstacks reference
-params).  The KV cache is ``{"k", "v"}`` of shape (layers, num_blocks + 1,
-KVH, block_size, D) and is updated in place.
+params).  The KV cache stacks each layer's leaves (``models/attention.py``)
+on a leading ``layers`` axis — ``{"k", "v"}`` plus ``{"k_scale",
+"v_scale"}`` for int8 KV — and is updated in place.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import torch
 
@@ -49,23 +51,56 @@ def init_paged_cache(cfg, num_blocks: int, block_size: int,
                      dtype: torch.dtype,
                      device: torch.device) -> Dict[str, torch.Tensor]:
     """Stacked per-layer page pools: (layers, num_blocks + 1, KVH,
-    block_size, D) each for k and v (page ``num_blocks`` is the write
-    sink, see ``models/attention.py``)."""
+    block_size, D) for k and v (page ``num_blocks`` is the write sink, see
+    ``models/attention.py``), int8 with (layers, num_blocks + 1, KVH,
+    block_size) scale pools when ``cfg.kv_quant``."""
     shape = (cfg.num_layers,) + attention.paged_kv_shape(cfg, num_blocks,
                                                          block_size)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return attention.kv_buffers(cfg, shape, dtype, device)
 
 
-def _layer_pools(cache: Dict[str, torch.Tensor]) -> List[Dict[str, torch.Tensor]]:
-    return [{"k": k, "v": v} for k, v in zip(cache["k"], cache["v"])]
+def init_cache(cfg, batch: int, max_seq: int, dtype: torch.dtype,
+               device: torch.device) -> Dict[str, torch.Tensor]:
+    """Stacked per-layer dense caches: (layers, batch, KVH, cache_len + 1,
+    D) for k and v (the last column is the write sink), int8 with
+    (layers, batch, KVH, cache_len + 1) scales when ``cfg.kv_quant``."""
+    shape = (cfg.num_layers,) + attention.dense_kv_shape(cfg, batch, max_seq)
+    return attention.kv_buffers(cfg, shape, dtype, device)
 
 
-def _block(cfg, x: torch.Tensor, bp, attend) -> torch.Tensor:
-    h = layers.rms_norm(x, bp["attn_norm"], cfg.rms_norm_eps)
-    x = x + attend(bp["attn"], h)
-    h = layers.rms_norm(x, bp["mlp_norm"], cfg.rms_norm_eps)
-    return x + layers.swiglu_mlp(bp["mlp"], h)
+def _layer_caches(cache: Dict[str, torch.Tensor]
+                  ) -> List[Dict[str, torch.Tensor]]:
+    """One dict of views per layer, over every leaf of the stacked cache."""
+    n = next(iter(cache.values())).shape[0]
+    return [{name: leaf[i] for name, leaf in cache.items()} for i in range(n)]
+
+
+def _forward(params, cfg, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+             attend: Callable) -> torch.Tensor:
+    """Every block over x; ``attend(attn_params, h, layer_cache)`` is the
+    attention of one layer.  Returns the final-normed hidden states."""
+    for bp, layer in zip(params["blocks"], _layer_caches(cache)):
+        h = layers.rms_norm(x, bp["attn_norm"], cfg.rms_norm_eps)
+        x = x + attend(bp["attn"], h, layer)
+        h = layers.rms_norm(x, bp["mlp_norm"], cfg.rms_norm_eps)
+        x = x + layers.swiglu_mlp(bp["mlp"], h)
+    return layers.rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+
+
+def _chunk(params, cfg, tokens: torch.Tensor, starts: torch.Tensor,
+           valid: torch.Tensor, cache: Dict[str, torch.Tensor],
+           attend: Callable) -> torch.Tensor:
+    """One prefill chunk; ``attend(attn_params, h, positions, layer_cache)``.
+    Returns the logits at each row's last valid position (B, V)."""
+    x = layers.embed_tokens(params, tokens)
+    B, C, _ = x.shape
+    positions = starts[:, None] + torch.arange(C, dtype=torch.int32,
+                                               device=x.device)[None, :]
+    x = _forward(params, cfg, x, cache,
+                 lambda ap, h, layer: attend(ap, h, positions, layer))
+    last = torch.clamp(valid.long() - 1, 0, C - 1)
+    return layers.unembed(params, cfg, x[torch.arange(B, device=x.device),
+                                         last])
 
 
 def prefill_chunk_paged(params, cfg, tokens: torch.Tensor,
@@ -81,17 +116,10 @@ def prefill_chunk_paged(params, cfg, tokens: torch.Tensor,
     valid position (B, V), the cache updated in place) — the logits mean
     something only for rows whose chunk ends their prompt.
     """
-    x = layers.embed_tokens(params, tokens)
-    B, C, _ = x.shape
-    positions = starts[:, None] + torch.arange(C, dtype=torch.int32,
-                                               device=x.device)[None, :]
-    for bp, pool in zip(params["blocks"], _layer_pools(cache)):
-        x = _block(cfg, x, bp, lambda ap, h: attention.attend_prefill_chunk_paged(
-            ap, cfg, h, positions, valid, block_table, pool))
-    x = layers.rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    last = torch.clamp(valid.long() - 1, 0, C - 1)
-    x_last = x[torch.arange(B, device=x.device), last]
-    return layers.unembed(params, cfg, x_last), cache
+    return _chunk(params, cfg, tokens, starts, valid, cache,
+                  lambda ap, h, positions, pool:
+                  attention.attend_prefill_chunk_paged(
+                      ap, cfg, h, positions, valid, block_table, pool)), cache
 
 
 def decode_step_paged(params, cfg, tokens: torch.Tensor,
@@ -101,9 +129,28 @@ def decode_step_paged(params, cfg, tokens: torch.Tensor,
     """tokens: (B,) int32; lengths: (B,) int32 current cache fill per
     sequence; block_table: (B, nb) int32.  Returns (logits (B, V), the
     cache updated in place)."""
-    x = layers.embed_tokens(params, tokens[:, None])
-    for bp, pool in zip(params["blocks"], _layer_pools(cache)):
-        x = _block(cfg, x, bp, lambda ap, h: attention.attend_decode_paged(
-            ap, cfg, h, lengths, block_table, pool))
-    x = layers.rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    x = _forward(params, cfg, layers.embed_tokens(params, tokens[:, None]),
+                 cache, lambda ap, h, pool: attention.attend_decode_paged(
+                     ap, cfg, h, lengths, block_table, pool))
+    return layers.unembed(params, cfg, x[:, 0]), cache
+
+
+def prefill_chunk(params, cfg, tokens: torch.Tensor, starts: torch.Tensor,
+                  valid: torch.Tensor, cache: Dict[str, torch.Tensor]
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``prefill_chunk_paged`` against the dense per-slot cache: row b of
+    the batch is slot b of the cache."""
+    return _chunk(params, cfg, tokens, starts, valid, cache,
+                  lambda ap, h, positions, layer:
+                  attention.attend_prefill_chunk(ap, cfg, h, positions, valid,
+                                                 layer)), cache
+
+
+def decode_step(params, cfg, tokens: torch.Tensor, lengths: torch.Tensor,
+                cache: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``decode_step_paged`` against the dense per-slot cache."""
+    x = _forward(params, cfg, layers.embed_tokens(params, tokens[:, None]),
+                 cache, lambda ap, h, layer: attention.attend_decode(
+                     ap, cfg, h, lengths, layer))
     return layers.unembed(params, cfg, x[:, 0]), cache

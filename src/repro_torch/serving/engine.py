@@ -1,20 +1,31 @@
-"""Continuous-batching LLM engine over the paged KV pool (PyTorch twin of
-``src/repro/serving/engine.py``, paged path only).
+"""Continuous-batching LLM engine (PyTorch twin of
+``src/repro/serving/engine.py``, chunked-prefill paths).
 
 The engine is the "LLM serving instance" of the paper (Def. 2.3): a fixed
-slot array holding the running batch, paged KV accounting through
+slot array holding the running batch, KV accounting through
 ``BlockManager`` (admission, preemption, refcounted prefix sharing with
-copy-on-write pages), chunked prefill, eviction snapshots, model swapping
-and the request-pull hook the QLM agent drives.  Its host-side logic is
-the reference engine's, line for line; what changed is the compute:
+copy-on-write pages on the paged layout), chunked prefill, eviction
+snapshots, model swapping and the request-pull hook the QLM agent drives.
+Its host-side logic is the reference engine's, line for line; what
+changed is the compute:
 
-  * backend ``"paged-cuda"`` (``None`` means the same): every round runs
-    ``prefill_chunk_paged`` / ``decode_step_paged`` of the port's model,
-    whose attention is the hand-written CUDA paged kernels on a CUDA
-    device and their plain PyTorch versions on the CPU;
-  * the KV page pool ``(layers, num_blocks + 1, KVH, block_size, D)`` is
-    updated in place (the reference's buffer donation has no counterpart
-    to configure); COW page copies land before any dispatch or snapshot;
+  * backend ``"paged-cuda"`` (``None`` means the same), the counterpart
+    of the reference's ``"paged-pallas"``: every round runs
+    ``prefill_chunk_paged`` / ``decode_step_paged`` over the KV page pool
+    ``(layers, num_blocks + 1, KVH, block_size, D)``, whose attention is
+    the hand-written CUDA paged kernels (their int8 twins for a
+    ``kv_quant`` model) on a CUDA device and their plain PyTorch versions
+    on the CPU.  Full attention only;
+  * backend ``"cuda"``, the counterpart of ``"pallas"``: the dense
+    per-slot cache ``(layers, max_slots, KVH, cache_len + 1, D)`` (a
+    rolling window for sliding-window models), ``prefill_chunk`` /
+    ``decode_step``; decode runs the dense CUDA decode kernel (or its
+    int8 twin) under full attention, the chunk step and rolling-window
+    decode run plain PyTorch, as the reference runs jnp there.  Prefix
+    sharing is inert on this layout, as in the reference;
+  * the cache is updated in place (the reference's buffer donation has no
+    counterpart to configure); COW page copies land before any dispatch
+    or snapshot;
   * the block table is uploaded only when ``BlockManager.table_version``
     moves, from a copy of the manager's table, which it mutates in place;
   * timed regions end in ``torch.cuda.synchronize`` on a CUDA device, so
@@ -23,11 +34,12 @@ the reference engine's, line for line; what changed is the compute:
   * ``steps(k)`` runs the burst as a host loop over device-side finish
     flags with the reference's ``lax.while_loop`` rules;
   * eviction snapshots keep the same dict, with ``"cache"`` holding CPU
-    torch tensors of the evicted pages (bfloat16 has no numpy dtype).
+    torch tensors of the evicted pages or slot (bfloat16 has no numpy
+    dtype); a snapshot resumes only on an engine of its own layout.
 
-Not ported: the dense per-slot backends, the legacy single-shot prefill
-(``prefill_chunk_tokens=0``) and ``fork_slot`` raise
-``NotImplementedError``.
+Not ported: the reference's ``"xla"`` / ``"paged-xla"`` backends, the
+legacy single-shot prefill (``prefill_chunk_tokens=0``) and ``fork_slot``
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -44,8 +56,9 @@ from repro_torch.device import resolve_device
 from repro_torch.models.model_factory import Model
 from repro_torch.serving.kv_cache import BlockManager
 
-ATTENTION_BACKENDS = ("paged-cuda",)
-# backends of the reference engine this port does not carry
+ATTENTION_BACKENDS = ("cuda", "paged-cuda")
+# backend names of the reference engine; "pallas" / "paged-pallas" are
+# served here as "cuda" / "paged-cuda"
 _REFERENCE_ONLY_BACKENDS = ("xla", "pallas", "paged-xla", "paged-pallas")
 
 
@@ -62,7 +75,8 @@ class EngineConfig:
     device: str = "cuda"
     # Chunked prefill: max prompt tokens processed per slot per step().
     prefill_chunk_tokens: int = 128
-    # "paged-cuda" or None (the same): the port's only backend.
+    # "paged-cuda" (page pool) or "cuda" (dense per-slot cache); None
+    # means "paged-cuda".
     attention_backend: Optional[str] = None
     # Fused multi-step decode: ``steps()`` runs up to this many decode
     # iterations per host round trip.  1 = the single-step ``step()`` loop.
@@ -76,6 +90,10 @@ class EngineConfig:
     # up to date in place; the invariant checker holds it against the
     # from-scratch rebuild ``_block_table_array`` when this is set.
     incremental_block_table: ClassVar[bool] = True
+
+    @property
+    def paged(self) -> bool:
+        return self.attention_backend != "cuda"
 
     def resolved_kv_blocks(self) -> int:
         if self.kv_blocks is not None:
@@ -129,8 +147,10 @@ class ContinuousBatchingEngine:
                  clock: Callable[[], float] = time.monotonic):
         if cfg.attention_backend in _REFERENCE_ONLY_BACKENDS:
             raise NotImplementedError(
-                f"attention_backend {cfg.attention_backend!r} is not ported; "
-                f"the port serves {ATTENTION_BACKENDS} only")
+                f"attention_backend {cfg.attention_backend!r} is the "
+                f"reference's; the port serves {ATTENTION_BACKENDS} "
+                f"(\"pallas\" -> \"cuda\", \"paged-pallas\" -> "
+                f"\"paged-cuda\")")
         if cfg.attention_backend not in ATTENTION_BACKENDS + (None,):
             raise ValueError(
                 f"attention_backend must be one of {ATTENTION_BACKENDS} "
@@ -138,21 +158,21 @@ class ContinuousBatchingEngine:
         if cfg.prefill_chunk_tokens <= 0:
             raise NotImplementedError(
                 "the legacy single-shot prefill (prefill_chunk_tokens <= 0) "
-                "is not ported: the paged engine needs chunked prefill")
+                "is not ported: the engine needs chunked prefill")
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
         # lifecycle clock vs calibration wall clock (see the reference)
         self.clock = clock
         self._wall = time.monotonic
         self.lock = threading.RLock()
-        self.prefix_sharing = bool(cfg.prefix_sharing)
+        self.paged = cfg.paged
+        # sharing needs a physical page pool: inert on the dense layout
+        self.prefix_sharing = bool(cfg.prefix_sharing) and self.paged
+        self._check_layout(model)
         self.model = model
         self.params = params
         self.model_name = model_name
         self.stats = EngineStats()
-        if self.model.cfg.sliding_window is not None:
-            raise ValueError(
-                "paged attention backends support full attention only")
         self.block_mgr = BlockManager(cfg.resolved_kv_blocks(),
                                       cfg.block_size,
                                       cache_freed=self.prefix_sharing)
@@ -168,10 +188,20 @@ class ContinuousBatchingEngine:
         self._pinned_snapshots: List[Request] = []
         self._pushback: Optional[Request] = None
 
+    def _check_layout(self, model: Model) -> None:
+        if self.paged and model.cfg.sliding_window is not None:
+            raise ValueError(
+                f"paged attention backends support full attention only; "
+                f"{model.cfg.name} has a sliding window (serve it on "
+                f"attention_backend='cuda')")
+
     def _init_cache(self) -> Dict[str, torch.Tensor]:
-        return self.model.init_paged_cache(
-            self.cfg.resolved_kv_blocks(), self.cfg.block_size,
-            self.cfg.dtype, self.device)
+        if self.paged:
+            return self.model.init_paged_cache(
+                self.cfg.resolved_kv_blocks(), self.cfg.block_size,
+                self.cfg.dtype, self.device)
+        return self.model.init_cache(self.cfg.max_slots, self.cfg.max_seq_len,
+                                     self.cfg.dtype, self.device)
 
     def _sync(self) -> None:
         """Wait for the device: ends every timed region."""
@@ -219,6 +249,20 @@ class ContinuousBatchingEngine:
                 return i
         return None
 
+    def _extract_cache(self, b: int) -> Dict[str, torch.Tensor]:
+        """Dense eviction snapshot: slot ``b`` of every leaf, without the
+        write-sink column, copied to CPU tensors (a copy on the CPU too:
+        the slot is rewritten while the snapshot waits)."""
+        S = self.cache["k"].shape[3] - 1
+        return {name: leaf[:, b, :, :S].to("cpu", copy=True)
+                for name, leaf in self.cache.items()}
+
+    def _restore_cache(self, snapshot: Dict[str, torch.Tensor],
+                       b: int) -> None:
+        for name, leaf in self.cache.items():
+            S = snapshot[name].shape[2]
+            leaf[:, b, :, :S] = snapshot[name].to(self.device, leaf.dtype)
+
     def _extract_pages(self, block_ids: List[int]) -> Dict[str, torch.Tensor]:
         """Eviction snapshot: copy ONLY the given pages (axis 1 of each
         (layers, num_blocks + 1, ...) pool) to host memory, as CPU tensors."""
@@ -243,6 +287,8 @@ class ContinuousBatchingEngine:
         the tables; the page CONTENTS move here) — before any dispatch that
         could write a COW destination page, and before an eviction snapshot
         reads one."""
+        if not self.paged:
+            return
         ops = self.block_mgr.take_cow_ops()
         if not ops:
             return
@@ -342,14 +388,17 @@ class ContinuousBatchingEngine:
                 "paged attention backends have no legacy single-shot "
                 "prefill path (modality extras need a dense backend)")
         t0 = self._wall()
+        my_layout = "paged" if self.paged else "dense"
         if req.snapshot is not None \
-                and req.snapshot.get("layout", "dense") != "paged":
+                and req.snapshot.get("layout", "dense") != my_layout:
+            # page contents cannot be transplanted across layouts: recompute
+            # when nothing was generated yet
             if req.generated == 0:
                 self._discard_snapshot(req)
             else:
                 raise ValueError(
                     f"cannot resume a {req.snapshot.get('layout', 'dense')} "
-                    f"KV snapshot on a paged engine mid-decode")
+                    f"KV snapshot on a {my_layout} engine mid-decode")
         if req.snapshot is not None \
                 and self._usable_pins(req.snapshot) is None:
             # shared-prefix blocks still pinned in another pool: recompute
@@ -377,7 +426,11 @@ class ContinuousBatchingEngine:
             else:
                 blocks = self.block_mgr.allocate(req.req_id, alloc_tokens)
             self.block_mgr.bind_slot(req.req_id, slot)
-            self._restore_pages(snap["cache"], blocks, offset=len(pinned))
+            if self.paged:
+                self._restore_pages(snap["cache"], blocks,
+                                    offset=len(pinned))
+            else:
+                self._restore_cache(snap["cache"], slot)
             self.lengths[slot] = length
             self.prefill_pos[slot] = ppos
             if snap.get("pin_owner") is not None \
@@ -392,7 +445,7 @@ class ContinuousBatchingEngine:
                 self.stats.prefix_lookups += 1
                 shared = self.block_mgr.match_prefix(req.prompt_tokens)
             start = len(shared) * self.cfg.block_size
-            first = min(self.cfg.prefill_chunk_tokens, req.prompt_len - start)
+            first = min(self._chunk_quantum(), req.prompt_len - start)
             if shared:
                 self.block_mgr.share_prefix(req.req_id, start + first, shared)
                 self.stats.prefix_hits += 1
@@ -420,15 +473,21 @@ class ContinuousBatchingEngine:
         assert req is not None
         kv_tokens = self.block_mgr.seq_tokens(req.req_id) \
             if self.block_mgr.has(req.req_id) else 0
-        # pending COW copies must land before the snapshot reads pages
-        self._apply_cow()
-        pinned, private = self.block_mgr.evict_split(req.req_id)
+        if self.paged:
+            # pending COW copies must land before the snapshot reads pages
+            self._apply_cow()
+            pinned, private = self.block_mgr.evict_split(req.req_id)
+            cache_snap = self._extract_pages(private)
+        else:
+            pinned = []
+            cache_snap = self._extract_cache(slot)
+            self.block_mgr.free(req.req_id)
         req.snapshot = {
-            "cache": self._extract_pages(private),
+            "cache": cache_snap,
             "length": int(self.lengths[slot]),
             "prefill_pos": int(self.prefill_pos[slot]),
             "kv_tokens": kv_tokens,
-            "layout": "paged",
+            "layout": "paged" if self.paged else "dense",
             "pinned": pinned,
             "pin_owner": self.block_mgr,
             "pin_epoch": self.block_mgr.epoch,
@@ -571,6 +630,9 @@ class ContinuousBatchingEngine:
     # model swapping LSO
     # ------------------------------------------------------------------
     def swap_model(self, model: Model, params, model_name: str) -> List[Request]:
+        """Flush, replace the weights and rebuild the cache for the new
+        model's shapes (layers, KV heads, head_dim, ``cache_len``, int8)."""
+        self._check_layout(model)
         t0 = self._wall()
         evicted = self.flush()
         # swapped-out snapshots belong to the OLD model: drop them
@@ -596,6 +658,15 @@ class ContinuousBatchingEngine:
     def take_pushback(self) -> Optional[Request]:
         r, self._pushback = self._pushback, None
         return r
+
+    def _chunk_quantum(self) -> int:
+        """Effective chunk size: clamped to the rolling SWA cache length so
+        one chunk never writes the same cache slot twice."""
+        C = self.cfg.prefill_chunk_tokens
+        w = self.model.cfg.sliding_window
+        if w is not None:
+            C = min(C, min(self.cfg.max_seq_len, w))
+        return C
 
     def _bucket_for(self, n: int) -> int:
         for b in self.cfg.resolved_buckets():
@@ -626,7 +697,7 @@ class ContinuousBatchingEngine:
         if not work:
             return
         t0 = self._wall()
-        C = self.cfg.prefill_chunk_tokens
+        C = self._chunk_quantum()
         chunks: Dict[int, Tuple[np.ndarray, int, bool]] = {}
         for i in work:
             req = self.slots[i]
@@ -654,11 +725,16 @@ class ContinuousBatchingEngine:
             tokens[i, :n] = chunk
             starts[i] = self.prefill_pos[i]
             valid[i] = n
-        # the table is refreshed AFTER the extends above
-        logits, self.cache = self.model.prefill_chunk_paged(
-            self.params, self.cache, self._to_device(tokens),
-            self._to_device(starts), self._to_device(valid),
-            self._device_block_table())
+        if self.paged:
+            # the table is refreshed AFTER the extends above
+            logits, self.cache = self.model.prefill_chunk_paged(
+                self.params, self.cache, self._to_device(tokens),
+                self._to_device(starts), self._to_device(valid),
+                self._device_block_table())
+        else:
+            logits, self.cache = self.model.prefill_chunk(
+                self.params, self.cache, self._to_device(tokens),
+                self._to_device(starts), self._to_device(valid))
         toks_out = torch.argmax(logits, dim=-1).cpu().numpy()
         self._sync()  # the cache writes too: prefill_time feeds the RWT
         self.stats.prefill_chunks += 1
@@ -688,6 +764,19 @@ class ContinuousBatchingEngine:
                 else r.prompt_tokens[-1]
         return tokens
 
+    def _decode_step(self, tokens: torch.Tensor,
+                     lengths: torch.Tensor) -> torch.Tensor:
+        """One decode step of every slot on this engine's layout; returns
+        the logits, the cache updated in place."""
+        if self.paged:
+            logits, self.cache = self.model.decode_step_paged(
+                self.params, self.cache, tokens, lengths,
+                self._device_block_table())
+        else:
+            logits, self.cache = self.model.decode_step(
+                self.params, self.cache, tokens, lengths)
+        return logits
+
     def _decode_round(self, done: List[Request]) -> None:
         active = self.decode_slots()
         if not active:
@@ -695,9 +784,8 @@ class ContinuousBatchingEngine:
         t0 = self._wall()
         # pending COW copies land before this dispatch writes their pages
         self._apply_cow()
-        logits, self.cache = self.model.decode_step_paged(
-            self.params, self.cache, self._to_device(self._last_tokens(active)),
-            self._to_device(self.lengths), self._device_block_table())
+        logits = self._decode_step(self._to_device(self._last_tokens(active)),
+                                   self._to_device(self.lengths))
         next_tokens = torch.argmax(logits, dim=-1).cpu().numpy()
         self._sync()
         self.stats.decode_iterations += 1
@@ -762,8 +850,7 @@ class ContinuousBatchingEngine:
 
     def _decode_burst(self, n: int, tokens: torch.Tensor,
                       lengths: torch.Tensor, remaining: torch.Tensor,
-                      active: torch.Tensor,
-                      block_table: torch.Tensor) -> torch.Tensor:
+                      active: torch.Tensor) -> torch.Tensor:
         """Up to ``n`` decode iterations with the argmax, length increments
         and EOS / max-token / max-seq-len finish flags all on the device,
         stopping early once every slot retired (the reference's
@@ -776,8 +863,7 @@ class ContinuousBatchingEngine:
                          device=self.device)
         eos = self.cfg.eos_token
         for i in range(n):
-            logits, self.cache = self.model.decode_step_paged(
-                self.params, self.cache, tokens, lengths, block_table)
+            logits = self._decode_step(tokens, lengths)
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)
             produced = torch.where(active, nxt, tokens)
             out[i] = torch.where(active, nxt, -1)
@@ -815,7 +901,7 @@ class ContinuousBatchingEngine:
         out = self._decode_burst(
             n, self._to_device(self._last_tokens(active)),
             self._to_device(self.lengths), self._to_device(remaining),
-            self._to_device(active_mask), self._device_block_table())
+            self._to_device(active_mask))
         out = out.cpu().numpy()
         self._sync()
         executed = int((out >= 0).any(axis=1).sum())

@@ -1,4 +1,5 @@
-"""The port's CUDA paged-attention kernels against their plain PyTorch
+"""The port's CUDA attention kernels (paged decode, paged prefill, dense
+decode, each in float and int8-KV variants) against their plain PyTorch
 versions, on the card.
 
 Needs an NVIDIA GPU with nvcc (sm_90a); skips elsewhere.  Imports no JAX,
@@ -16,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import paged_decode_attention as pda
 from repro_torch.kernels import paged_prefill_attention as ppa
 
@@ -102,6 +104,97 @@ def test_paged_prefill_kernel_matches_plain(dev, dtype, H, KVH, D, bs, C):
                                    want[b, :, :n].float(), **TOL[dtype])
 
 
+def _int8_rows(rng, shape, dtype, dev):
+    """int8 k and v rows of ``shape`` (..., D) and their per-row scales."""
+    rows = [torch.tensor(rng.integers(-127, 128, size=shape), dtype=torch.int8,
+                         device=dev) for _ in range(2)]
+    scales = [torch.tensor(rng.random(shape[:-1]) * 0.05 + 1e-3, dtype=dtype,
+                           device=dev) for _ in range(2)]
+    return rows + scales
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KVH,D,bs", [(32, 8, 64, 16), (32, 8, 80, 16),
+                                         (6, 2, 128, 16), (8, 1, 32, 4)])
+def test_paged_decode_quant_kernel_matches_plain(dev, dtype, H, KVH, D, bs):
+    rng = np.random.default_rng(3)
+    lengths = np.array([1, bs, bs + 1, 5 * bs + 3, 100, 0], np.int32)
+    B, nb = len(lengths), 8
+    N = 4 * B * nb
+    q = torch.tensor(rng.standard_normal((B, H, D)), dtype=dtype, device=dev)
+    kq, vq, ks, vs = _int8_rows(rng, (N, KVH, bs, D), dtype, dev)
+    bt = _table(rng, B, nb, N, [-(-int(n) // bs) for n in lengths], dev)
+    ln = torch.tensor(np.minimum(lengths, nb * bs), device=dev)
+    before = pda.quant_launches
+    out = pda.paged_decode_attention_quant(q, kq, vq, ks, vs, bt, ln)
+    torch.cuda.synchronize()
+    assert pda.quant_launches == before + 1
+    want = pda.paged_decode_attention_quant_plain(q, kq, vq, ks, vs, bt, ln)
+    torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+    assert torch.count_nonzero(out[-1]) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KVH,D,bs,C", [(32, 8, 64, 16, 32),
+                                           (32, 8, 80, 16, 128),
+                                           (6, 2, 128, 16, 100)])
+def test_paged_prefill_quant_kernel_matches_plain(dev, dtype, H, KVH, D, bs,
+                                                  C):
+    rng = np.random.default_rng(4)
+    starts = np.array([0, 21, 2 * bs, 300, 7], np.int32)
+    valid = np.array([C, C, C // 2 + 3, 0, C - 5], np.int32)
+    B = len(starts)
+    nb = -(-(int(starts.max()) + C) // bs)
+    N = 2 * B * nb
+    q = torch.tensor(rng.standard_normal((B, H, C, D)), dtype=dtype, device=dev)
+    ck, cv = (torch.tensor(rng.standard_normal((B, KVH, C, D)), dtype=dtype,
+                           device=dev) for _ in range(2))
+    kq, vq, ks, vs = _int8_rows(rng, (N, KVH, bs, D), dtype, dev)
+    bt = _table(rng, B, nb, N, [-(-int(s) // bs) for s in starts], dev)
+    st = torch.tensor(starts, device=dev)
+    vd = torch.tensor(valid, device=dev)
+    before = ppa.quant_launches
+    out = ppa.paged_prefill_attention_quant(q, kq, vq, ks, vs, ck, cv, bt, st,
+                                            vd)
+    torch.cuda.synchronize()
+    assert ppa.quant_launches == before + 1
+    want = ppa.paged_prefill_attention_quant_plain(q, kq, vq, ks, vs, ck, cv,
+                                                   bt, st, vd)
+    for b, n in enumerate(valid):
+        torch.testing.assert_close(out[b, :, :n].float(),
+                                   want[b, :, :n].float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("H,KVH,D,S", [(32, 8, 64, 129), (32, 8, 80, 65),
+                                        (6, 2, 128, 300), (8, 1, 32, 7)])
+def test_decode_kernels_match_plain(dev, dtype, quant, H, KVH, D, S):
+    """Dense decode: lengths 0, 1, S (the full slot) and in between; the
+    tail past lengths is masked, S need not be a tile multiple."""
+    rng = np.random.default_rng(5)
+    lengths = np.array([1, S, 0, S // 2 + 1, max(S - 3, 1)], np.int32)
+    B = len(lengths)
+    q = torch.tensor(rng.standard_normal((B, H, D)), dtype=dtype, device=dev)
+    ln = torch.tensor(lengths, device=dev)
+    if quant:
+        args = (q, *_int8_rows(rng, (B, KVH, S, D), dtype, dev), ln)
+        fn, plain, name = (da.decode_attention_quant,
+                           da.decode_attention_quant_plain, "quant_launches")
+    else:
+        args = (q, *(torch.tensor(rng.standard_normal((B, KVH, S, D)),
+                                  dtype=dtype, device=dev)
+                     for _ in range(2)), ln)
+        fn, plain, name = (da.decode_attention, da.decode_attention_plain,
+                           "launches")
+    before = getattr(da, name)
+    out = fn(*args)
+    torch.cuda.synchronize()
+    assert getattr(da, name) == before + 1
+    torch.testing.assert_close(out.float(), plain(*args).float(), **TOL[dtype])
+    assert torch.count_nonzero(out[2]) == 0
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     rng = np.random.default_rng(2)
     q = torch.randn(2, 4, 64, device=dev)
@@ -117,3 +210,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
                                    .transpose(0, 1), kp, vp, bt, ln)
     with pytest.raises(ValueError):
         pda.paged_decode_attention(q.cpu(), kp, vp, bt, ln)
+    kq = torch.zeros(2, 2, 16, 64, dtype=torch.int8, device=dev)
+    ks = torch.ones(2, 2, 16, device=dev)
+    with pytest.raises(TypeError):         # pages must be int8
+        da.decode_attention_quant(q, kq.float(), kq, ks, ks, ln)
+    with pytest.raises(TypeError):         # scales in q's dtype
+        da.decode_attention_quant(q, kq, kq, ks.bfloat16(), ks, ln)
+    with pytest.raises(ValueError):
+        da.decode_attention_quant(q, kq, kq, ks[:, :, :8], ks, ln)

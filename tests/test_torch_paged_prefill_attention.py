@@ -4,7 +4,8 @@ JAX Pallas kernel in interpret mode and its gather oracle, on the same
 numpy inputs: the first chunk (empty prefix), a chunk start straddling a
 page edge, a page-aligned prefix, ``valid == 0`` rows, partial chunks, a
 chunk of 256 and sentinel blocks (mirrors
-``tests/test_paged_prefill_kernel.py``).  Rows past ``valid`` are garbage
+``tests/test_paged_prefill_kernel.py``), and the int8 twin over int8
+prefix pages with float in-chunk keys.  Rows past ``valid`` are garbage
 on both sides and are not compared.
 
 Tolerance: float32, atol = rtol = 2e-5, as the reference kernel tests.
@@ -111,3 +112,44 @@ def test_paged_prefill_matches_full_causal_attention():
     want = ref.flash_attention_ref(jnp.asarray(q_full), k_full, v_full,
                                    causal=True)[:, :, start:]
     np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+def _port_quant(*arrays):
+    before = ppa.quant_launches
+    out = ppa.paged_prefill_attention_quant(*[torch.from_numpy(a)
+                                              for a in arrays])
+    assert ppa.quant_launches == before  # CPU tensors: the plain version
+    return out.numpy()
+
+
+@pytest.mark.parametrize("bs,H,KVH,C,D", [(8, 4, 2, 16, 32),
+                                           (16, 8, 1, 32, 16),
+                                           (8, 4, 4, 48, 32)])
+def test_paged_prefill_quant_matches_jax(bs, H, KVH, C, D):
+    """int8 prefix pages with scale pages and float in-chunk keys against
+    the Pallas int8 kernel (interpret mode) and its gather oracle: the
+    first chunk, a start inside a page, a page-aligned prefix, valid == 0
+    and a partial chunk."""
+    rng = np.random.default_rng(24)
+    B = 5
+    nb = -(-(2 * bs + 19 + C) // bs)
+    q, _, _, ck, cv, bt = _case(rng, B=B, H=H, KVH=KVH, C=C, D=D, bs=bs,
+                                nb=nb)
+    N = 4 * B * nb
+    kq, vq = (rng.integers(-127, 128, size=(N, KVH, bs, D)).astype(np.int8)
+              for _ in range(2))
+    ks, vs = ((rng.random((N, KVH, bs)) * 0.1 + 1e-3).astype(np.float32)
+              for _ in range(2))
+    st = np.array([0, 19, 2 * bs, 11, 5], np.int32)
+    vd = np.array([C, C, 5, 0, C - 3], np.int32)
+    got = _port_quant(q, kq, vq, ks, vs, ck, cv, bt, st, vd)
+    _assert_valid_rows_close(
+        got, ops.paged_prefill_attention_quant(q, kq, vq, ks, vs, ck, cv, bt,
+                                               st, vd, interpret=True), vd)
+    _assert_valid_rows_close(
+        got, ref.paged_prefill_attention_quant_ref(
+            jnp.asarray(q), kq, vq, ks, vs, ck, cv, bt, st, vd), vd)
+    # the chunk's keys enter as given (float), not through the int8 pages
+    kf = kq.astype(np.float32) * ks[..., None]
+    vf = vq.astype(np.float32) * vs[..., None]
+    _assert_valid_rows_close(got, _port(q, kf, vf, ck, cv, bt, st, vd), vd)

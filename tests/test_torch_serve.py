@@ -2,7 +2,9 @@
 the CPU: the QLM controller, agents and the port's engine serve a small
 Poisson workload on reduced GQA granite.  Every request must end terminal,
 no KV block may leak, and every served request's tokens must equal the
-JAX engine's greedy tokens for the same prompt and weights (exact).
+JAX engine's greedy tokens for the same prompt and weights (exact).  The
+CLI also serves two models, reduced granite and reduced h2o-danube, on the
+dense backend with model swaps.
 """
 import argparse
 
@@ -60,3 +62,19 @@ def test_round_robin_serves_every_request_like_the_jax_engine():
         ref.step()
     assert [r.output_tokens for r in served] == \
         [t.output_tokens for t in twins]
+
+
+def test_serve_cli_swaps_granite_and_danube_on_the_dense_backend(capsys):
+    """``--backend cuda --arch2 h2o-danube-1.8b --device cpu``: both reduced
+    models (h2o-danube with its 64-token rolling window) share one engine,
+    every request is served and the engine swaps models."""
+    stats = serve.main(["--backend", "cuda", "--arch2", "h2o-danube-1.8b",
+                        "--device", "cpu", "--requests", "8", "--rate",
+                        "20", "--max-new-tokens", "4", "--slots", "4",
+                        "--debug-invariants"])
+    assert stats["requests"] == stats["served"] == 8
+    assert stats["failed"] == stats["dropped_unserved"] == 0
+    # tokens counts decode steps: every request's 3 tokens after the first
+    # (more where a swap flushed a request and it was recomputed)
+    assert stats["swaps"] >= 1 and stats["tokens"] >= 8 * 3
+    assert "swaps" in capsys.readouterr().out
