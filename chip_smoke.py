@@ -7,9 +7,9 @@ Phases, in order; any failure exits non-zero before the result lines:
   1. require CUDA, print the card's name and power limit;
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
      per source, started together);
-  3. kernel phase: all six kernels (paged decode, paged prefill, dense
-     decode, each in float and int8-KV form) against their plain PyTorch
-     versions on the card, in float32 and bfloat16, at granite-3-2b's
+  3. kernel phase: the six serving kernels (paged decode, paged prefill,
+     dense decode, each in float and int8-KV form) against their plain
+     PyTorch versions on the card, in float32 and bfloat16, at granite-3-2b's
      widths (32 query heads, 8 KV heads, head_dim 64, 16-token pages) and
      at h2o-danube's head_dim 80: sentinel table entries, lengths 0/1/page
      edges/the full slot, prefill chunks that start past a page edge,
@@ -22,7 +22,15 @@ Phases, in order; any failure exits non-zero before the result lines:
      length-masked KV; none computes an int8 twin in one call, so its
      ``library_ms`` is null and the dequantize-then-SDPA time is printed
      beside it) at the serving shapes (device time, from CUDA-graph
-     replays), beside the bound, and each kernel once more at long context;
+     replays), beside the bound, and each kernel once more at long context.
+     Then flash attention in f32 and bf16 at granite's widths (B 2, 32
+     heads on 8, D 64, L 512), h2o-danube's D 80 with windows 8, 17 and
+     64, the JAX tests' ragged cases (Lq 33 on Lkv 65, L 100) and L 2048;
+     its autograd Function's gradients against autograd of the plain
+     version (f32, 1e-4); and its time at the training phase's shape (f32)
+     beside its bound (the visible half of the causal square) and
+     ``scaled_dot_product_attention``, and, for reference, in bf16, with
+     a 64-token window (SDPA with a boolean mask) and at L 2048;
   4. serve phases, one per path, each with the launch counts set to 0 just
      before and read just after, through ``calibrate_registry`` /
      ``build_cluster`` / ``run_round_robin`` of
@@ -51,7 +59,19 @@ Phases, in order; any failure exits non-zero before the result lines:
      the dense backend, and h2o-danube on the dense backend with prompts
      past its 64-token rolling window; granite on int8 pages must keep its
      logits within 1e-3 of the CPU's and may part from its tokens only at
-     a near tie (``near_tie_parting``).
+     a near tie (``near_tie_parting``);
+  8. training phase, through ``repro_torch.launch.train.train`` with
+     ``use_pallas_attention`` set, float32, launch counts set to 0 just
+     before and read just after: 3 steps of full-width granite-3-2b
+     (batch 2, seq 512, remat) with finite losses and exactly 2 flash
+     launches per layer and step (the forward and each block's recompute),
+     its step times and peak memory; one step of the same weights and
+     batch with the flag off (step-0 loss within 1e-4 relative, gradient
+     norm within 1e-3); one full-width step of h2o-danube-1.8b (D 80);
+  9. training reference phase: reduced granite and h2o-danube (window 64,
+     seq 128) trained 3 steps on the card (the kernel) and on the CPU (the
+     plain version) from the same weights and data: losses and final
+     params within 1e-4.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -60,6 +80,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import importlib
 import json
 import subprocess
@@ -106,6 +127,9 @@ KERNELS = {
     "decode_attention_quant": (
         "decode_attention", "quant_launches", "decode_attention.cu",
         "src/repro/kernels/decode_attention.py:121"),
+    "flash_attention": (
+        "flash_attention", "launches", "flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:94"),
 }
 
 
@@ -462,6 +486,7 @@ def kernel_phase(shapes: dict):
         f"C={C} valid rows={int((valid > 0).sum())} query tokens={n_q}; "
         f"dense decode B={B} S={S1} live tokens={live}")
     long_context(rng, gen, failures)
+    flash_phase(gen, failures, records)
     return records, failures
 
 
@@ -503,6 +528,95 @@ def long_context(rng, gen, failures) -> None:
                 "bound_by": by}))
 
 
+# (B, H, KVH, Lq, Lkv, D, window) of the flash cases: granite's widths at
+# the training phase's batch and sequence, h2o-danube's D 80 with windows,
+# the JAX tests' ragged lengths, and a long sequence
+FLASH_CASES = {
+    "granite B2 L512": (2, 32, 8, 512, 512, 64, None),
+    "D80 window 8": (1, 32, 8, 300, 300, 80, 8),
+    "D80 window 17": (1, 32, 8, 300, 300, 80, 17),
+    "D80 window 64": (2, 32, 8, 512, 512, 80, 64),
+    "MQA Lq33 Lkv65": (1, 4, 1, 33, 65, 16, None),
+    "GQA L100": (2, 8, 2, 100, 100, 64, None),
+    "L2048": (1, 32, 8, 2048, 2048, 64, None),
+}
+
+
+def flash_case(gen, dtype, B, H, KVH, Lq, Lkv, D):
+    return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            for shape in ((B, H, Lq, D), (B, KVH, Lkv, D), (B, KVH, Lkv, D))]
+
+
+def flash_phase(gen, failures, records) -> None:
+    """Flash attention against its plain version over FLASH_CASES in f32
+    and bf16, the Function's gradients against autograd of the plain
+    version, then the timed record at the training phase's shape (f32,
+    causal), and for reference the same shape in bf16, a 64-token window
+    at D 80 and L 2048."""
+    from repro_torch.kernels import flash_attention as fa
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for case, (B, H, KVH, Lq, Lkv, D, w) in FLASH_CASES.items():
+            q, k, v = flash_case(gen, dtype, B, H, KVH, Lq, Lkv, D)
+            err, ok = compare(fa.flash_attention(q, k, v, window=w),
+                              fa.flash_attention_plain(q, k, v, window=w),
+                              dtype)
+            torch.cuda.synchronize()
+            log(f"  {'flash_attention':30s} {str(dtype):15s} {case:24s} "
+                f"max_abs_err {err:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(("flash_attention", str(dtype), case))
+
+    for case in ("granite B2 L512", "D80 window 64"):
+        B, H, KVH, Lq, Lkv, D, w = FLASH_CASES[case]
+        base = flash_case(gen, torch.float32, B, H, KVH, Lq, Lkv, D)
+        cot = torch.randn(base[0].shape, generator=gen, device="cuda")
+        grads = []
+        for fn in (fa.flash_attention, fa.flash_attention_plain):
+            ts = [t.clone().requires_grad_() for t in base]
+            (fn(*ts, window=w) * cot).sum().backward()
+            grads.append([t.grad for t in ts])
+        errs = [compare(a, b, torch.float32) for a, b in zip(*grads)]
+        ok = all(o for _, o in errs)
+        log(f"  flash_attention gradients (dq, dk, dv) {case}: max_abs_err "
+            f"{[f'{e:.3e}' for e, _ in errs]} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(("flash_attention", "gradients", case))
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for dtype, esize, case in ((torch.float32, 4, "granite B2 L512"),
+                               (torch.bfloat16, 2, "granite B2 L512"),
+                               (torch.float32, 4, "D80 window 64"),
+                               (torch.float32, 4, "L2048")):
+        B, H, KVH, L, _, D, w = FLASH_CASES[case]
+        q, k, v = flash_case(gen, dtype, B, H, KVH, L, L, D)
+        err, ok = compare(fa.flash_attention(q, k, v, window=w),
+                          fa.flash_attention_plain(q, k, v, window=w), dtype)
+        if not ok:
+            failures.append(("flash_attention", str(dtype), "timed " + case))
+        if w is None:
+            library = (lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
+        else:
+            mask = fa.visible_keys(L, L, True, w, "cuda")
+            library = (lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True))
+        # each input read once, the output written once; 4 flops per
+        # (query head, visible key, dimension): L(L+1)/2 visible pairs when
+        # causal, min(i + 1, w) for query i under a window
+        pairs = sum(min(i + 1, w or L) for i in range(L))
+        bound_ms, by = bound(esize * D * L * B * (2 * H + 2 * KVH),
+                             4.0 * B * H * D * pairs, dtype)
+        rec = {"max_abs_err": err,
+               "ms": time_ms(lambda: fa.flash_attention(q, k, v, window=w)),
+               "plain_ms": time_ms(
+                   lambda: fa.flash_attention_plain(q, k, v, window=w)),
+               "bound_ms": bound_ms, "bound_by": by,
+               "library_ms": time_ms(library)}
+        label = f"{case} {str(dtype).replace('torch.', '')}"
+        log(f"  flash_attention {label}: " + json.dumps(rec))
+        if dtype == torch.float32 and case == "granite B2 L512":
+            records["flash_attention"] = rec     # the training phase's shape
+
+
 # ---------------------------------------------------------------------------
 # serving phases
 # ---------------------------------------------------------------------------
@@ -530,12 +644,12 @@ def _leaves(tree):
         yield tree
 
 
-def _to_cpu(tree):
+def _to_device(tree, device):
     if isinstance(tree, dict):
-        return {k: _to_cpu(v) for k, v in tree.items()}
+        return {k: _to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_to_cpu(v) for v in tree]
-    return tree.cpu()
+        return [_to_device(v, device) for v in tree]
+    return tree.to(device, copy=True)
 
 
 def serve_path(label, registry, backend, kernels, *, serve_all) -> dict:
@@ -751,7 +865,8 @@ def reference_phase() -> None:
         gen.manual_seed(1)
         params = model.init(gen, torch.float32, "cuda")
         outs = []
-        for device, p in (("cuda", params), ("cpu", _to_cpu(params))):
+        for device, p in (("cuda", params),
+                          ("cpu", _to_device(params, "cpu"))):
             calls = []
             eng = ContinuousBatchingEngine(
                 _recording(model, calls), p, EngineConfig(
@@ -788,6 +903,118 @@ def reference_phase() -> None:
         check(gs.resumes >= 1, f"{label}: the trace missed the resume")
         check(backend == "cuda" or gs.prefix_hits >= 1,
               f"{label}: the trace missed prefix sharing")
+
+
+def _train_args(arch, steps, *extra):
+    from repro_torch.launch import train as train_cli
+    return train_cli.parse_args(["--arch", arch, "--steps", str(steps),
+                                 "--log-every", "1", *extra])
+
+
+def _train(cfg, args, params=None) -> tuple:
+    """``launch.train.train`` with the launch counts set to 0 just before
+    and read just after; returns (result, counts)."""
+    from repro_torch.launch import train as train_cli
+    reset_launches()
+    result = train_cli.train(cfg, args, params)
+    counts = read_launches()
+    torch.cuda.synchronize()
+    return result, counts
+
+
+def training_phase() -> int:
+    """Full-width training through the flash kernel (f32, remat): 3
+    granite-3-2b steps, one step with the flag off from the same weights
+    and batch, one h2o-danube-1.8b step.  Returns granite's flash
+    launches."""
+    from repro_torch.configs import get_arch
+
+    granite = get_arch(GRANITE)
+    args = _train_args(GRANITE, 3, "--full", "--batch", "2", "--seq", "512")
+    # the serve phases' engines sit in reference cycles (engine, agent,
+    # controller) that hold both models' weights until a collection
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  memory allocated before training: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    res, counts = _train(dataclasses.replace(granite,
+                                             use_pallas_attention=True), args)
+    peak = torch.cuda.max_memory_allocated()
+    launches = counts["flash_attention"]
+    want = granite.num_layers * 2 * args.steps
+    log(f"  granite-3-2b f32 B=2 L=512, flag on: losses {res['losses']}, "
+        f"grad norms {res['grad_norms']}, step times (s, host clock, loss "
+        f"read back) {res['step_s']}, peak memory "
+        f"{peak / 2**30:.2f} GiB; flash launches {launches} (expected "
+        f"{granite.num_layers} layers x 2 (forward + remat recompute) x "
+        f"{args.steps} steps = {want})")
+    check(all(np.isfinite(res["losses"])), f"non-finite loss {res}")
+    check(launches == want, f"flash launches {launches} != {want}")
+    check(not any(n for k, n in counts.items() if k != "flash_attention"),
+          f"serving kernels launched in training: {counts}")
+
+    off, off_counts = _train(granite,
+                             argparse.Namespace(**{**vars(args), "steps": 1}))
+    log(f"  granite-3-2b flag off, step 0: loss {off['losses'][0]} (flag on "
+        f"{res['losses'][0]}), grad norm {off['grad_norms'][0]} (flag on "
+        f"{res['grad_norms'][0]}), step time {off['step_s'][0]} s")
+    check(off_counts["flash_attention"] == 0, "flag off launched the kernel")
+    check(abs(off["losses"][0] - res["losses"][0])
+          <= 1e-4 * abs(off["losses"][0]), "step-0 loss: flag on != off")
+    check(abs(off["grad_norms"][0] - res["grad_norms"][0])
+          <= 1e-3 * abs(off["grad_norms"][0]), "grad norm: flag on != off")
+
+    danube = dataclasses.replace(get_arch(DANUBE), use_pallas_attention=True)
+    d_args = _train_args(DANUBE, 1, "--full", "--batch", "2", "--seq", "512")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    d_res, d_counts = _train(danube, d_args)
+    log(f"  h2o-danube-1.8b f32 B=2 L=512, flag on: loss {d_res['losses']}, "
+        f"step time {d_res['step_s']} s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, flash "
+        f"launches {d_counts['flash_attention']}")
+    check(np.isfinite(d_res["losses"][0]), "h2o-danube loss not finite")
+    check(d_counts["flash_attention"] == danube.num_layers * 2,
+          f"h2o-danube flash launches {d_counts}")
+    return launches
+
+
+def training_reference_phase() -> None:
+    """Reduced granite and h2o-danube (window 64, seq 128) trained 3 steps
+    on the card (the flash kernel) and on the CPU (its plain version) from
+    the same weights and data: losses and final params within 1e-4."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.training.optimizer import tree_leaves
+
+    small = dict(num_layers=2, d_model=256, num_heads=8, num_kv_heads=2)
+    for name in (GRANITE, DANUBE):
+        cfg = dataclasses.replace(get_arch(name).reduced(**small),
+                                  use_pallas_attention=True)
+        gen = torch.Generator()
+        gen.manual_seed(4)
+        cpu_params = build_model(cfg).init(gen, torch.float32, "cpu")
+        cuda_params = _to_device(cpu_params, "cuda")
+        results = []
+        for device, params in (("cuda", cuda_params), ("cpu", cpu_params)):
+            args = _train_args(name, 3, "--batch", "4", "--seq", "128",
+                               "--device", device)
+            results.append(_train(cfg, args, params))
+        (got, counts), (want, _) = results
+        diff = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+            tree_leaves(cuda_params), tree_leaves(cpu_params)))
+        ok_params = all(torch.allclose(a.cpu(), b, atol=1e-4, rtol=1e-4)
+                        for a, b in zip(tree_leaves(cuda_params),
+                                        tree_leaves(cpu_params)))
+        log(f"  {name} reduced (window {cfg.sliding_window}): cuda losses "
+            f"{got['losses']}, cpu {want['losses']}; max |param diff| "
+            f"{diff:.3e}; flash launches {counts['flash_attention']}")
+        check(counts["flash_attention"] == cfg.num_layers * 2 * 3,
+              f"{name}: flash launches {counts}")
+        check(np.allclose(got["losses"], want["losses"], atol=1e-4,
+                          rtol=1e-4), f"{name}: losses part")
+        check(ok_params, f"{name}: params part by {diff}")
 
 
 def main() -> int:
@@ -873,13 +1100,24 @@ def main() -> int:
     t0 = time.monotonic()
     long_prompt_phase(g_model, g_params)
     log(f"[long-prompt] ok in {time.monotonic() - t0:.1f} s")
-    del models, g_params, d_params
+    # the serve loop's last registry holds both models' weights too
+    del models, registry, g_params, d_params
     torch.cuda.empty_cache()
 
     log("[reference] cuda engine vs cpu engine, reduced models, float32")
     t0 = time.monotonic()
     reference_phase()
     log(f"[reference] ok in {time.monotonic() - t0:.1f} s")
+
+    log("[train] full width, float32, use_pallas_attention")
+    t0 = time.monotonic()
+    launches["flash_attention"] = training_phase()
+    log(f"[train] ok in {time.monotonic() - t0:.1f} s")
+
+    log("[train-reference] cuda vs cpu training, reduced models, float32")
+    t0 = time.monotonic()
+    training_reference_phase()
+    log(f"[train-reference] ok in {time.monotonic() - t0:.1f} s")
 
     kernels = [{
         "name": name, "route": "cuda",

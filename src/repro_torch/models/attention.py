@@ -1,6 +1,8 @@
-"""GQA attention over the KV cache (PyTorch twin of the serving subset of
-``src/repro/models/attention.py``): the paged page pool and the dense
-per-slot cache, each in float and with int8 KV (``cfg.kv_quant``).
+"""GQA attention (PyTorch twin of ``src/repro/models/attention.py``
+without the legacy single-shot prefill): full-sequence training attention
+(``attend_train``), and attention over the KV cache, the paged page pool
+and the dense per-slot cache, each in float and with int8 KV
+(``cfg.kv_quant``).
 
 Caches are dicts of tensors updated in place: ``{"k", "v"}``, plus
 ``{"k_scale", "v_scale"}`` (one scale per row, in the model's dtype) when
@@ -38,6 +40,7 @@ import math
 
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_quant)
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_decode_attention import (
     paged_decode_attention, paged_decode_attention_quant)
 from repro_torch.kernels.paged_prefill_attention import (
@@ -149,6 +152,64 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     out = torch.matmul(probs.to(v.dtype), v[:, :, None])
     return out.reshape(B, H, Lq, D).to(v.dtype)
+
+
+def _sdpa_q_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, window: Optional[int],
+                    chunk: int) -> torch.Tensor:
+    """Query-chunked exact attention: the peak score tensor is (B, KVH,
+    group, chunk, Lkv) instead of (B, KVH, group, L, L); chunks run one
+    after another, as the reference's ``lax.map``."""
+    B, H, L, D = q.shape
+    Lkv = k.shape[2]
+    if L % chunk:
+        raise ValueError(f"sequence {L} is not a multiple of chunk {chunk}")
+    outs = []
+    for q_off in range(0, L, chunk):
+        if window is not None:
+            mask = layers.sliding_window_mask(chunk, Lkv, q_off, window,
+                                              q.device)[None, None]
+        elif causal:
+            mask = layers.causal_mask(chunk, Lkv, q_off, q.device)[None, None]
+        else:
+            mask = None
+        outs.append(_sdpa(q[:, :, q_off:q_off + chunk], k, v, mask))
+    return torch.cat(outs, dim=2)
+
+
+def attend_train(params, cfg, x: torch.Tensor, positions: torch.Tensor,
+                 *, bidirectional: bool = False) -> torch.Tensor:
+    """Full-sequence attention. x: (B, L, d); positions: (1 or B, L).
+
+    Three routes, as the reference's: the flash kernel under
+    ``cfg.use_pallas_attention`` (causal, with the model's window); the
+    query-chunked path when ``cfg.train_attn_chunk`` divides L and is
+    shorter; else ``_sdpa`` with a causal, window or no mask."""
+    B, L, _ = x.shape
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    q = q.transpose(1, 2)                                    # (B, H, L, D)
+    k = k.transpose(1, 2)
+    v = v.transpose(1, 2)
+    chunk = cfg.train_attn_chunk
+    if cfg.use_pallas_attention and not bidirectional:
+        out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              causal=True, window=cfg.sliding_window)
+    elif chunk is not None and not bidirectional and L % chunk == 0 \
+            and L > chunk:
+        out = _sdpa_q_chunked(q, k, v, causal=True,
+                              window=cfg.sliding_window, chunk=chunk)
+    else:
+        if bidirectional:
+            mask = None
+        elif cfg.sliding_window is not None:
+            mask = layers.sliding_window_mask(L, L, 0, cfg.sliding_window,
+                                              x.device)[None, None]
+        else:
+            mask = layers.causal_mask(L, L, 0, x.device)[None, None]
+        out = _sdpa(q, k, v, mask)
+    out = out.transpose(1, 2).reshape(B, L, cfg.num_heads
+                                      * cfg.resolved_head_dim)
+    return out @ params["wo"]
 
 
 def _write_rows(cfg, cache: Dict[str, torch.Tensor], k: torch.Tensor,

@@ -1,5 +1,5 @@
 """Shared building blocks: initializers, norms, RoPE, the SwiGLU MLP,
-embedding and the vocab-padding mask (PyTorch twins of
+embedding, the vocab-padding mask and the attention masks (PyTorch twins of
 ``src/repro/models/layers.py``).
 
 Model code is functional: ``init_*`` builds nested dicts of tensors and the
@@ -97,3 +97,19 @@ def unembed(params, cfg, x: torch.Tensor) -> torch.Tensor:
     projection is the embedding's transpose."""
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return mask_padded_logits(x @ w, cfg.vocab_size)
+
+
+def causal_mask(q_len: int, kv_len: int, q_offset: int,
+                device=None) -> torch.Tensor:
+    """Boolean (q_len, kv_len) mask; True = attend.  q_offset = absolute
+    position of the first query."""
+    q_pos = q_offset + torch.arange(q_len, device=device)[:, None]
+    kv_pos = torch.arange(kv_len, device=device)[None, :]
+    return kv_pos <= q_pos
+
+
+def sliding_window_mask(q_len: int, kv_len: int, q_offset: int, window: int,
+                        device=None) -> torch.Tensor:
+    q_pos = q_offset + torch.arange(q_len, device=device)[:, None]
+    kv_pos = torch.arange(kv_len, device=device)[None, :]
+    return (kv_pos <= q_pos) & (kv_pos > q_pos - window)

@@ -1,8 +1,10 @@
 """Model interface of the port (twin of ``src/repro/models/model_factory.py``
-for ``arch_type == "dense"``, chunked serving paths only).
+for ``arch_type == "dense"``: the training loss and the chunked serving
+paths).
 
 ``build_model(cfg)`` returns a ``Model`` with:
   * ``init(gen, dtype, device)``  -> params (random, from ``gen``)
+  * ``loss(params, batch, remat=True)`` -> (scalar, metrics)
   * ``init_cache(batch, max_seq, dtype, device)`` -> dense per-slot caches
   * ``prefill_chunk(params, cache, tokens, starts, valid)``
   * ``decode_step(params, cache, tokens, lengths)``
@@ -28,6 +30,7 @@ from repro_torch.models import transformer
 class Model:
     cfg: ModelConfig
     init: Callable
+    loss: Callable
     init_cache: Callable
     prefill_chunk: Callable
     decode_step: Callable
@@ -45,6 +48,8 @@ def build_model(cfg: ModelConfig) -> Model:
         cfg=cfg,
         init=lambda gen, dtype=torch.float32, device="cuda":
             transformer.init_lm(gen, cfg, dtype, resolve_device(device)),
+        loss=lambda params, batch, remat=True:
+            transformer.loss_fn(params, cfg, batch, remat=remat),
         init_cache=lambda batch, max_seq, dtype=torch.float32, device="cuda":
             transformer.init_cache(cfg, batch, max_seq, dtype,
                                    resolve_device(device)),

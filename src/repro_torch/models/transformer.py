@@ -1,6 +1,7 @@
-"""Dense decoder-only transformer LM over the KV cache (PyTorch twin of
-the serving subset of ``src/repro/models/transformer.py``): chunked
-prefill and decode, over the paged KV pool or the dense per-slot cache.
+"""Dense decoder-only transformer LM (PyTorch twin of
+``src/repro/models/transformer.py`` for ``arch_type == "dense"``): the
+training loss (``loss_fn``), and chunked prefill and decode over the paged
+KV pool or the dense per-slot cache.
 
 Params are nested dicts: ``{"embed", "final_norm", ["lm_head"], "blocks":
 [per-layer dict, ...]}`` — one dict per layer instead of the reference's
@@ -15,6 +16,7 @@ from __future__ import annotations
 from typing import Callable, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention, layers
 
@@ -66,6 +68,60 @@ def init_cache(cfg, batch: int, max_seq: int, dtype: torch.dtype,
     (layers, batch, KVH, cache_len + 1) scales when ``cfg.kv_quant``."""
     shape = (cfg.num_layers,) + attention.dense_kv_shape(cfg, batch, max_seq)
     return attention.kv_buffers(cfg, shape, dtype, device)
+
+
+def _block_train(cfg, x: torch.Tensor, positions: torch.Tensor,
+                 bp) -> torch.Tensor:
+    h = layers.rms_norm(x, bp["attn_norm"], cfg.rms_norm_eps)
+    x = x + attention.attend_train(bp["attn"], cfg, h, positions)
+    h = layers.rms_norm(x, bp["mlp_norm"], cfg.rms_norm_eps)
+    return x + layers.swiglu_mlp(bp["mlp"], h)
+
+
+def forward_train(params, cfg, x_embeds: torch.Tensor,
+                  positions: torch.Tensor, *, remat: bool = True
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x_embeds: (B, L, d) -> (hidden (B, L, d), total_aux_loss).
+
+    A Python loop over the per-layer dicts takes the place of the
+    reference's ``lax.scan``; with ``remat`` each block runs under
+    ``torch.utils.checkpoint``, which keeps only its input and reruns its
+    forward in the backward pass (the reference's ``jax.checkpoint``).  The
+    aux loss is MoE's, so always 0 here."""
+    if cfg.moe is not None or cfg.vision is not None:
+        raise NotImplementedError(
+            f"the port trains dense decoders only (no MoE or VLM yet), got "
+            f"{cfg.name}")
+    if cfg.shard_activations_seq:
+        raise NotImplementedError(
+            "shard_activations_seq: the port has no sharding yet")
+    x = x_embeds
+    for bp in params["blocks"]:
+        if remat:
+            x = checkpoint(_block_train, cfg, x, positions, bp,
+                           use_reentrant=False)
+        else:
+            x = _block_train(cfg, x, positions, bp)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return layers.rms_norm(x, params["final_norm"], cfg.rms_norm_eps), aux
+
+
+def loss_fn(params, cfg, batch: Dict[str, torch.Tensor], *,
+            remat: bool = True
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy. batch: {"tokens": (B, S+1) integer}.
+    Returns (loss, {"ce", "aux"}), 0-dim f32 tensors."""
+    tokens = batch["tokens"].long()
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    x = layers.embed_tokens(params, inputs)
+    L = x.shape[1]
+    positions = torch.arange(L, device=x.device)[None, :]
+    hidden, aux = forward_train(params, cfg, x, positions, remat=remat)
+    logits = layers.unembed(params, cfg, hidden).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    ce = torch.mean(logz - gold)
+    return ce, {"ce": ce, "aux": aux}
 
 
 def _layer_caches(cache: Dict[str, torch.Tensor]

@@ -1,0 +1,76 @@
+"""Training step factory: loss, AdamW and (optionally) microbatch gradient
+accumulation (PyTorch twin of ``src/repro/training/train_step.py``)."""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.models.model_factory import Model
+from repro_torch.training.optimizer import (AdamW, AdamWState, global_norm,
+                                            tree_leaves, tree_unflatten)
+
+
+def make_train_step(model: Model, opt: AdamW, *, microbatches: int = 1,
+                    remat: bool = True):
+    """Returns ``train_step(params, opt_state, batch) -> (params,
+    opt_state, metrics)``; ``batch`` is ``{"tokens": (B, S+1)}`` on the
+    params' device, and ``metrics`` holds 0-dim tensors ``loss``,
+    ``grad_norm`` (before clipping), ``ce`` and ``aux``.
+
+    The params are updated in place (``AdamW.update``) and returned.  With
+    ``microbatches > 1`` the batch is split on axis 0 and the mean of the
+    microbatches' gradients is applied: the memory-vs-time knob of the
+    reference.
+    """
+
+    def value_and_grad(params, batch):
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            loss, metrics = model.loss(params, batch, remat=remat)
+            grads = torch.autograd.grad(loss, leaves)
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return loss.detach(), metrics, tree_unflatten(params, list(grads))
+
+    def single(params, opt_state: AdamWState, batch: Dict[str, torch.Tensor]
+               ) -> Tuple[object, AdamWState, Dict[str, torch.Tensor]]:
+        loss, metrics, grads = value_and_grad(params, batch)
+        metrics = dict(metrics, loss=loss, grad_norm=global_norm(grads))
+        opt_state = opt.update(grads, opt_state, params)
+        return params, opt_state, metrics
+
+    if microbatches == 1:
+        return single
+
+    def accumulated(params, opt_state: AdamWState,
+                    batch: Dict[str, torch.Tensor]
+                    ) -> Tuple[object, AdamWState, Dict[str, torch.Tensor]]:
+        b = next(iter(batch.values())).shape[0]
+        if b % microbatches:
+            raise ValueError(f"batch {b} does not split into {microbatches} "
+                             f"microbatches")
+        n = b // microbatches
+        acc, loss_sum = None, 0.0
+        for i in range(microbatches):
+            mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+            loss, _, grads = value_and_grad(params, mb)
+            if acc is None:
+                acc = tree_leaves(grads)
+            else:
+                torch._foreach_add_(acc, tree_leaves(grads))
+            loss_sum = loss_sum + loss
+        torch._foreach_div_(acc, float(microbatches))
+        grads = tree_unflatten(params, acc)
+        loss = loss_sum / microbatches
+        metrics = {"loss": loss, "grad_norm": global_norm(grads), "ce": loss,
+                   "aux": torch.zeros((), dtype=torch.float32,
+                                      device=loss.device)}
+        opt_state = opt.update(grads, opt_state, params)
+        return params, opt_state, metrics
+
+    return accumulated

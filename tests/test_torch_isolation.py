@@ -22,7 +22,8 @@ COPIES = ["configs/base.py", "configs/granite_3_2b.py",
           "core/request.py", "core/rwt_estimator.py",
           "core/request_group.py", "core/solver.py", "core/virtual_queue.py",
           "core/global_scheduler.py", "core/routing.py", "core/qlm.py",
-          "core/lso.py", "serving/kv_cache.py", "analysis/invariants.py"]
+          "core/lso.py", "serving/kv_cache.py", "analysis/invariants.py",
+          "training/data_pipeline.py"]
 
 
 def _rewrite(src: str) -> str:

@@ -1,6 +1,6 @@
 """The port's CUDA attention kernels (paged decode, paged prefill, dense
-decode, each in float and int8-KV variants) against their plain PyTorch
-versions, on the card.
+decode, each in float and int8-KV variants, and flash attention with its
+autograd Function) against their plain PyTorch versions, on the card.
 
 Needs an NVIDIA GPU with nvcc (sm_90a); skips elsewhere.  Imports no JAX,
 so it runs where JAX is not installed:
@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_decode_attention as pda
 from repro_torch.kernels import paged_prefill_attention as ppa
 
@@ -218,3 +219,73 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         da.decode_attention_quant(q, kq, kq, ks.bfloat16(), ks, ln)
     with pytest.raises(ValueError):
         da.decode_attention_quant(q, kq, kq, ks[:, :, :8], ks, ln)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KVH,Lq,Lkv,D,window", [
+    (2, 32, 8, 512, 512, 64, None),     # granite's widths
+    (1, 32, 8, 200, 200, 80, 17),       # h2o-danube's head_dim, a window
+    (2, 8, 2, 100, 100, 128, None),     # D 128, not a tile multiple
+    (1, 4, 1, 33, 65, 16, None),        # MQA, Lq < Lkv
+    (2, 4, 2, 80, 80, 32, 8),
+    (2, 4, 2, 80, 80, 32, 64)])
+def test_flash_kernel_matches_plain(dev, dtype, B, H, KVH, Lq, Lkv, D,
+                                    window):
+    rng = np.random.default_rng(6)
+    q, k, v = (torch.tensor(rng.standard_normal(shape), dtype=dtype,
+                            device=dev)
+               for shape in ((B, H, Lq, D), (B, KVH, Lkv, D),
+                             (B, KVH, Lkv, D)))
+    before = fa.launches
+    out = fa.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    want = fa.flash_attention_plain(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("causal,window", [(False, None), (False, 9)])
+def test_flash_kernel_without_the_causal_mask(dev, causal, window):
+    rng = np.random.default_rng(7)
+    q = torch.tensor(rng.standard_normal((1, 8, 70, 64)), dtype=torch.float32,
+                     device=dev)
+    k, v = (torch.tensor(rng.standard_normal((1, 2, 90, 64)),
+                         dtype=torch.float32, device=dev) for _ in range(2))
+    out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(out, want, **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("D,window", [(64, None), (80, 64)])
+def test_flash_function_gradients_match_plain_autograd(dev, D, window):
+    """Forward through the kernel, backward through the plain version:
+    the gradients equal autograd of the plain version alone."""
+    rng = np.random.default_rng(8)
+    shapes = ((2, 32, 256, D), (2, 8, 256, D), (2, 8, 256, D))
+    base = [torch.tensor(rng.standard_normal(s), dtype=torch.float32,
+                         device=dev) for s in shapes]
+    cot = torch.tensor(rng.standard_normal(shapes[0]), dtype=torch.float32,
+                       device=dev)
+    grads = []
+    for fn in (fa.flash_attention, fa.flash_attention_plain):
+        ts = [t.clone().requires_grad_() for t in base]
+        (fn(*ts, causal=True, window=window) * cot).sum().backward()
+        grads.append([t.grad for t in ts])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, **TOL[torch.float32])
+
+
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    q = torch.randn(1, 4, 16, 64, device=dev)
+    k = torch.randn(1, 2, 16, 64, device=dev)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError):
+        fa.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k,
+                           k)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k[:, :, :, :32].contiguous(), k)
+    with pytest.raises(ValueError):
+        fa.flash_attention(torch.randn(1, 4, 16, 192, device=dev),
+                           torch.randn(1, 2, 16, 192, device=dev),
+                           torch.randn(1, 2, 16, 192, device=dev))
