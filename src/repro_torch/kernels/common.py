@@ -49,11 +49,12 @@ def check_cuda_inputs(kernel: str, floats: Dict[str, torch.Tensor],
 
 
 def launch(library: str, name: str, device: torch.device,
-           pointers: Sequence[torch.Tensor], ints: Sequence[int]) -> None:
+           pointers: Sequence[Optional[torch.Tensor]],
+           ints: Sequence[int]) -> None:
     """Launch the C function ``name(pointers..., ints..., stream)`` of
     library ``library`` (``csrc/<library>.cu``) on the current stream of
-    ``device``; raise if the launch was refused (its cudaGetLastError,
-    returned, is not 0)."""
+    ``device`` (a ``None`` pointer passes NULL); raise if the launch was
+    refused (its cudaGetLastError, returned, is not 0)."""
     lib = build.load(library)
     fn = getattr(lib, name)
     if fn.argtypes is None:
@@ -62,7 +63,8 @@ def launch(library: str, name: str, device: torch.device,
         fn.restype = ctypes.c_int
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(*[t.data_ptr() for t in pointers], *ints, stream)
+        rc = fn(*[None if t is None else t.data_ptr() for t in pointers],
+                *ints, stream)
     if rc != 0:
         err = getattr(lib, f"{library}_error_string")
         err.restype = ctypes.c_char_p

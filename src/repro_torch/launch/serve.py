@@ -3,14 +3,18 @@
 Runs the full QLM stack — request groups, virtual queues, RWT estimator,
 global scheduler, LSO agents — against a Poisson workload and prints SLO
 attainment and throughput, with every engine serving through the CUDA
-attention kernels (or, with ``--device cpu``, their plain versions):
-``--backend paged-cuda`` (the default) over the KV page pool, ``--backend
-cuda`` over dense per-slot caches, which also serve sliding-window models.
+kernels (or, with ``--device cpu``, their plain versions): ``--backend
+paged-cuda`` (the default) over the KV page pool, ``--backend cuda`` over
+dense per-slot caches, which also serve sliding-window models and mamba2
+(its state in place of the KV cache, its prefill through the SSD scan
+kernel); the page pool refuses mamba2, as the reference's does.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
       --requests 40 --rate 2.0
   PYTHONPATH=src python -m repro_torch.launch.serve --backend cuda \
       --arch2 h2o-danube-1.8b          # two models: the swap LSO
+  PYTHONPATH=src python -m repro_torch.launch.serve --backend cuda \
+      --arch mamba2-130m               # an SSM (--arch2 mamba2-130m: swaps)
 
 The registry holds the reduced config of each arch, as the reference CLI
 does (``src/repro/launch/serve.py``); ``--routing`` and
@@ -206,8 +210,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--backend", default=None,
                     choices=[None, "cuda", "paged-cuda"],
                     help="attention backend: None / paged-cuda = the KV page "
-                         "pool (full attention only), cuda = dense per-slot "
-                         "caches (sliding-window models too)")
+                         "pool (full attention only; refuses mamba2-130m, "
+                         "which has no pageable KV), cuda = dense per-slot "
+                         "caches (sliding-window models and mamba2 too)")
     ap.add_argument("--prefix-sharing", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="refcounted shared-prefix KV pages")

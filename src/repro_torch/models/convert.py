@@ -4,8 +4,10 @@
 (``src/repro/models/transformer.py::init_lm``) as nested dicts of numpy
 arrays — every per-layer leaf stacked on a leading ``layers`` axis for
 ``lax.scan`` — and returns the port's params: the same names, with
-``"blocks"`` unstacked into one dict per layer.  Parity tests load their
-weights through it, so both frameworks run identical numbers.
+``"blocks"`` unstacked into one dict per layer; the same for the mamba2
+tree of ``src/repro/models/ssm_lm.py::init_ssm_lm`` (``{"embed",
+"blocks": {"norm", "mamba": {...}}, "final_norm"}``).  Parity tests load
+their weights through it, so both frameworks run identical numbers.
 ``to_jax_layout`` is its inverse, for any tree of the params' structure
 (params, gradients, optimizer moments): tests compare gradients through
 it, and checkpoints write the reference's files with it.
@@ -32,8 +34,11 @@ def from_jax_params(params: Mapping[str, Any], cfg,
 
 def stacked_layers(params: Mapping[str, Any]) -> int:
     """The length of the leading ``layers`` axis of the reference-layout
-    ``params["blocks"]``."""
-    return len(np.asarray(params["blocks"]["attn_norm"]))
+    ``params["blocks"]`` (read from its first leaf)."""
+    leaf = params["blocks"]
+    while isinstance(leaf, Mapping):
+        leaf = next(iter(leaf.values()))
+    return len(np.asarray(leaf))
 
 
 def unstack_layers(params: Mapping[str, Any], device: torch.device,

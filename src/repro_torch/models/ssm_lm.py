@@ -1,0 +1,95 @@
+"""Attention-free Mamba2 LM, mamba2-130m (PyTorch twin of
+``src/repro/models/ssm_lm.py``): single-shot prefill and the recurrent
+decode step.  [arXiv:2405.21060]
+
+Params are ``{"embed", "final_norm", "blocks": [{"norm", "mamba": {...}},
+...]}``, one dict per layer (``models/convert.py`` unstacks the
+reference's).  The state stacks each layer's leaves on a leading
+``layers`` axis, ``{"conv": (layers, B, W-1, C), "ssm": (layers, B, H, N,
+P) float32}``, and both serving paths update it in place.  The loss is not
+ported yet.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.models import layers, ssm as ssm_lib
+
+
+def init_ssm_lm(gen: torch.Generator, cfg, dtype: torch.dtype,
+                device: torch.device):
+    """Random weights drawn on ``device`` from ``gen`` (a generator of that
+    device), at the reference's scales."""
+    return {
+        "embed": layers.embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype,
+                                   device),
+        "blocks": [{"norm": torch.ones(cfg.d_model, dtype=dtype,
+                                       device=device),
+                    "mamba": ssm_lib.init_mamba_block(gen, cfg, dtype,
+                                                      device)}
+                   for _ in range(cfg.num_layers)],
+        "final_norm": torch.ones(cfg.d_model, dtype=dtype, device=device),
+    }
+
+
+_NO_TRAINING = ("training mamba2 (ssm_lm.loss_fn / forward_train) is not "
+                "ported: it comes with the SSM training slice, which also "
+                "needs the SSD scan's gradient")
+
+
+def forward_train(params, cfg, x: torch.Tensor, *, remat: bool = True):
+    raise NotImplementedError(_NO_TRAINING)
+
+
+def loss_fn(params, cfg, batch, *, remat: bool = True):
+    raise NotImplementedError(_NO_TRAINING)
+
+
+def init_state(cfg, batch: int, max_seq: int, dtype: torch.dtype,
+               device: torch.device) -> Dict[str, torch.Tensor]:
+    """Zero conv histories in ``dtype`` and f32 SSM states, stacked on a
+    leading ``layers`` axis (``max_seq`` is unused: the state is
+    position-free)."""
+    conv = ssm_lib.init_conv_state(cfg, batch, dtype, device)
+    ssst = ssm_lib.init_ssm_state(cfg, batch, device)
+    return {"conv": conv[None].repeat(cfg.num_layers, 1, 1, 1),
+            "ssm": ssst[None].repeat(cfg.num_layers, 1, 1, 1, 1)}
+
+
+def _logits(params, cfg, x: torch.Tensor) -> torch.Tensor:
+    x = layers.rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    return layers.mask_padded_logits(x @ params["embed"].T, cfg.vocab_size)
+
+
+def _run(block, params, cfg, x: torch.Tensor,
+         state: Dict[str, torch.Tensor]) -> torch.Tensor:
+    for i, bp in enumerate(params["blocks"]):
+        h = layers.rms_norm(x, bp["norm"], cfg.rms_norm_eps)
+        out, st = block(bp["mamba"], cfg, h,
+                        {"conv": state["conv"][i], "ssm": state["ssm"][i]})
+        x = x + out
+        state["conv"][i].copy_(st["conv"])
+        state["ssm"][i].copy_(st["ssm"])
+    return x
+
+
+def prefill(params, cfg, tokens: torch.Tensor,
+            state: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """tokens (B, L) -> (logits of the last position, state)."""
+    x = _run(ssm_lib.mamba_block_full, params, cfg,
+             params["embed"][tokens.long()], state)
+    return _logits(params, cfg, x[:, -1]), state
+
+
+def decode_step(params, cfg, tokens: torch.Tensor, lengths: torch.Tensor,
+                state: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """tokens (B,) -> (logits, state); ``lengths`` is unused (the SSM state
+    is position-free)."""
+    del lengths
+    x = _run(ssm_lib.mamba_block_step, params, cfg,
+             params["embed"][tokens.long()[:, None]], state)
+    return _logits(params, cfg, x[:, 0]), state

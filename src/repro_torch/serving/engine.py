@@ -22,7 +22,12 @@ changed is the compute:
     ``decode_step``; decode runs the dense CUDA decode kernel (or its
     int8 twin) under full attention, the chunk step and rolling-window
     decode run plain PyTorch, as the reference runs jnp there.  Prefix
-    sharing is inert on this layout, as in the reference;
+    sharing is inert on this layout, as in the reference.  An SSM
+    (mamba2) serves only here: its per-slot state ``{"conv", "ssm"}``
+    takes the place of the KV cache, and it is admitted through the
+    reference's single-shot prefill (``_prefill_one``: batch 1 at the
+    exact prompt length, whose scan is the CUDA SSD kernel on a CUDA
+    device), since its state carry has no chunked prefill;
   * the cache is updated in place (the reference's buffer donation has no
     counterpart to configure); COW page copies land before any dispatch
     or snapshot;
@@ -38,8 +43,8 @@ changed is the compute:
     dtype); a snapshot resumes only on an engine of its own layout.
 
 Not ported: the reference's ``"xla"`` / ``"paged-xla"`` backends, the
-legacy single-shot prefill (``prefill_chunk_tokens=0``) and ``fork_slot``
-raise ``NotImplementedError``.
+single-shot prefill of a dense transformer (``prefill_chunk_tokens=0``),
+modality extras and ``fork_slot`` raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -155,10 +160,6 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 f"attention_backend must be one of {ATTENTION_BACKENDS} "
                 f"or None, got {cfg.attention_backend!r}")
-        if cfg.prefill_chunk_tokens <= 0:
-            raise NotImplementedError(
-                "the legacy single-shot prefill (prefill_chunk_tokens <= 0) "
-                "is not ported: the engine needs chunked prefill")
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
         # lifecycle clock vs calibration wall clock (see the reference)
@@ -187,8 +188,27 @@ class ContinuousBatchingEngine:
         self.pull_source: Optional[Callable[[], Optional[Request]]] = None
         self._pinned_snapshots: List[Request] = []
         self._pushback: Optional[Request] = None
+        # requests that finished inside admit() (single-shot path, EOS or
+        # max_new_tokens on the prefill token); returned by the next step()
+        self._admit_completed: List[Request] = []
 
     def _check_layout(self, model: Model) -> None:
+        """Refuse, before any state changes, a model this engine cannot
+        serve: one that needs the unported single-shot prefill of a dense
+        transformer, one without pageable KV (an SSM) or with a sliding
+        window on the page pool."""
+        if model.prefill is None and (self.cfg.prefill_chunk_tokens <= 0
+                                      or model.prefill_chunk is None):
+            raise NotImplementedError(
+                f"the single-shot prefill of a {model.cfg.arch_type} model "
+                f"(prefill_chunk_tokens <= 0) is not ported: "
+                f"{model.cfg.name} needs chunked prefill")
+        if self.paged and model.init_paged_cache is None:
+            raise ValueError(
+                f"attention_backend "
+                f"{self.cfg.attention_backend or 'paged-cuda'!r} requires "
+                f"an arch with pageable KV (got {model.cfg.arch_type}: serve "
+                f"{model.cfg.name} on attention_backend='cuda')")
         if self.paged and model.cfg.sliding_window is not None:
             raise ValueError(
                 f"paged attention backends support full attention only; "
@@ -249,19 +269,45 @@ class ContinuousBatchingEngine:
                 return i
         return None
 
-    def _extract_cache(self, b: int) -> Dict[str, torch.Tensor]:
-        """Dense eviction snapshot: slot ``b`` of every leaf, without the
-        write-sink column, copied to CPU tensors (a copy on the CPU too:
-        the slot is rewritten while the snapshot waits)."""
+    def _slot_index(self, b: int) -> tuple:
+        """Slot ``b`` of every dense cache leaf: the KV leaves (layers, B,
+        KVH, cache_len + 1, ...) without their write-sink column, an SSM's
+        conv and state leaves whole."""
+        if "k" not in self.cache:
+            return (slice(None), b)
         S = self.cache["k"].shape[3] - 1
-        return {name: leaf[:, b, :, :S].to("cpu", copy=True)
+        return (slice(None), b, slice(None), slice(0, S))
+
+    def _extract_cache(self, b: int) -> Dict[str, torch.Tensor]:
+        """Dense eviction snapshot: slot ``b`` of every leaf, copied to CPU
+        tensors (a copy on the CPU too: the slot is rewritten while the
+        snapshot waits)."""
+        idx = self._slot_index(b)
+        return {name: leaf[idx].to("cpu", copy=True)
                 for name, leaf in self.cache.items()}
 
     def _restore_cache(self, snapshot: Dict[str, torch.Tensor],
                        b: int) -> None:
+        idx = self._slot_index(b)
         for name, leaf in self.cache.items():
-            S = snapshot[name].shape[2]
-            leaf[:, b, :, :S] = snapshot[name].to(self.device, leaf.dtype)
+            leaf[idx] = snapshot[name].to(self.device, leaf.dtype)
+
+    def _insert_cache(self, slot_cache: Dict[str, torch.Tensor],
+                      b: int) -> None:
+        """Write a batch-1 cache (the single-shot prefill's) into slot b."""
+        for name, leaf in self.cache.items():
+            leaf[:, b] = slot_cache[name][:, 0]
+
+    def _prefill_one(self, prompt: np.ndarray) -> Tuple[int, Dict[str, Any]]:
+        """Prefill a single request (batch 1, exact length: SSM-state safe)
+        from a fresh cache; returns (first token, that cache)."""
+        cache1 = self.model.init_cache(1, self.cfg.max_seq_len,
+                                       self.cfg.dtype, self.device)
+        tokens = torch.tensor(prompt, dtype=torch.int32,
+                              device=self.device)[None]
+        logits, cache1 = self.model.prefill(self.params, {"tokens": tokens},
+                                            cache1)
+        return int(torch.argmax(logits[0], dim=-1)), cache1
 
     def _extract_pages(self, block_ids: List[int]) -> Dict[str, torch.Tensor]:
         """Eviction snapshot: copy ONLY the given pages (axis 1 of each
@@ -346,11 +392,15 @@ class ContinuousBatchingEngine:
         if snap and snap.get("pinned"):
             snap["pin_owner"].release_pins(snap["pinned"], snap["pin_epoch"])
 
+    def _use_chunked(self) -> bool:
+        return (self.cfg.prefill_chunk_tokens > 0
+                and self.model.prefill_chunk is not None)
+
     def can_admit(self, req: Request) -> bool:
         if self._free_slot() is None:
             return False
         if req.extras:
-            # modality extras need the legacy single-shot prefill
+            # modality extras ride a single-shot prefill that is not ported
             return False
         snap = req.snapshot
         shared_blocks = 0
@@ -377,16 +427,22 @@ class ContinuousBatchingEngine:
             shared_blocks=shared_blocks)
 
     def admit(self, req: Request, extras: Optional[Dict[str, Any]] = None) -> bool:
-        """Start chunked prefill for (or snapshot-restore) ``req`` in a free
-        slot.  Admission only reserves the first chunk's KV blocks and marks
-        the slot mid-prefill; the compute happens inside ``step()``."""
+        """Start prefill for (or snapshot-restore) ``req`` in a free slot.
+        On the chunked path admission only reserves the first chunk's KV
+        blocks and marks the slot mid-prefill; the compute happens inside
+        ``step()``.  An arch without chunked prefill (the SSM) is
+        prefilled here, in one call."""
         slot = self._free_slot()
         if slot is None or not self.can_admit(req):
             return False
         if extras or req.extras:
-            raise ValueError(
-                "paged attention backends have no legacy single-shot "
-                "prefill path (modality extras need a dense backend)")
+            if self.paged:
+                raise ValueError(
+                    "paged attention backends have no legacy single-shot "
+                    "prefill path (modality extras need a dense backend)")
+            raise NotImplementedError(
+                "modality extras (the single-shot prefill of a VLM or "
+                "enc-dec model) are not ported")
         t0 = self._wall()
         my_layout = "paged" if self.paged else "dense"
         if req.snapshot is not None \
@@ -439,7 +495,7 @@ class ContinuousBatchingEngine:
             req.snapshot = None  # pins were transferred, not released
             self.stats.resumes += 1
             self.slots[slot] = req
-        else:
+        elif self._use_chunked():
             shared: List[int] = []
             if self.prefix_sharing:
                 self.stats.prefix_lookups += 1
@@ -459,6 +515,26 @@ class ContinuousBatchingEngine:
             self.prefill_pos[slot] = start
             self.lengths[slot] = start
             self.slots[slot] = req
+        else:
+            # single-shot path (the SSM's state carry).  Compute first: a
+            # raising prefill must leave the engine clean.
+            tok, cache1 = self._prefill_one(np.asarray(req.prompt_tokens))  # qlint: disable=host-sync-in-hot-path -- host prompt list -> array for the one-shot prefill path
+            self.slots[slot] = req
+            self._insert_cache(cache1, slot)
+            self.lengths[slot] = req.prompt_len
+            self.prefill_pos[slot] = req.prompt_len
+            self.block_mgr.allocate(req.req_id, req.prompt_len + 1)
+            self.block_mgr.bind_slot(req.req_id, slot)
+            self._sync()  # the slot's state write: prefill_time feeds the RWT
+            now = self.clock()
+            if req.first_token_time is None:
+                req.first_token_time = now
+            req.output_tokens.append(tok)
+            req.generated += 1
+            self.stats.prefills += 1
+            # the chunked path's first-token finish check (EOS on the
+            # prefill token, max_new_tokens == 1); may free the slot
+            self._finish_if_done(slot, tok, now, self._admit_completed)
         self.stats.prefill_time += self._wall() - t0
         return True
 
@@ -631,7 +707,8 @@ class ContinuousBatchingEngine:
     # ------------------------------------------------------------------
     def swap_model(self, model: Model, params, model_name: str) -> List[Request]:
         """Flush, replace the weights and rebuild the cache for the new
-        model's shapes (layers, KV heads, head_dim, ``cache_len``, int8)."""
+        model's shapes (layers, KV heads, head_dim, ``cache_len``, int8;
+        an SSM's conv and state)."""
         self._check_layout(model)
         t0 = self._wall()
         evicted = self.flush()
@@ -955,8 +1032,9 @@ class ContinuousBatchingEngine:
         done: List[Request] = []
         self._prefill_chunk_round(done)
         self._decode_round(done)
+        admit_done, self._admit_completed = self._admit_completed, []
         self._check_invariants()
-        return done
+        return admit_done + done
 
     def steps(self, k: Optional[int] = None) -> List[Request]:
         """Like ``step()`` but the decode side runs up to ``k`` iterations
@@ -973,8 +1051,9 @@ class ContinuousBatchingEngine:
             self._decode_round(done)
         else:
             self._decode_burst_round(done, k)
+        admit_done, self._admit_completed = self._admit_completed, []
         self._check_invariants()
-        return done
+        return admit_done + done
 
     # ------------------------------------------------------------------
     # runtime invariant checking (repro_torch.analysis.invariants)

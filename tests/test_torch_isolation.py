@@ -18,7 +18,8 @@ REF = ROOT / "src" / "repro"
 
 # verbatim copies: equal to the reference after the import rewrite
 COPIES = ["configs/base.py", "configs/granite_3_2b.py",
-          "configs/h2o_danube_1_8b.py", "core/__init__.py",
+          "configs/h2o_danube_1_8b.py", "configs/mamba2_130m.py",
+          "core/__init__.py",
           "core/request.py", "core/rwt_estimator.py",
           "core/request_group.py", "core/solver.py", "core/virtual_queue.py",
           "core/global_scheduler.py", "core/routing.py", "core/qlm.py",

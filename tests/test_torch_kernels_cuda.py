@@ -1,6 +1,6 @@
-"""The port's CUDA attention kernels (paged decode, paged prefill, dense
-decode, each in float and int8-KV variants, and flash attention with its
-autograd Function) against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels (paged decode, paged prefill, dense decode, each
+in float and int8-KV variants, flash attention with its autograd Function,
+and the SSD scan) against their plain PyTorch versions, on the card.
 
 Needs an NVIDIA GPU with nvcc (sm_90a); skips elsewhere.  Imports no JAX,
 so it runs where JAX is not installed:
@@ -11,7 +11,11 @@ Tolerances: float32 atol = rtol = 1e-4 (the kernel sums the 64-term dot
 products and the softmax in another order than cuBLAS; measured errors sit
 near 1e-6); bfloat16 atol = rtol = 2e-2 (both sides accumulate in f32 from
 the same bf16 inputs and round the output to bf16, one ulp of which is
-2^-8 near 1).
+2^-8 near 1).  The SSD scan in float32 is held to atol = rtol = 5e-4, the
+JAX kernel test's own tolerance: its sums run over up to 128 + 64 terms of
+unit-normal inputs, and at L 2048 one element of 3.1 M that nearly cancels
+differed by 1.03e-4 (measured on an H100).  Its final state is f32
+whatever x's dtype and held to that tolerance too.
 """
 import numpy as np
 import pytest
@@ -21,11 +25,14 @@ from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_decode_attention as pda
 from repro_torch.kernels import paged_prefill_attention as ppa
+from repro_torch.kernels import ssd_scan as ss
 
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
        torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+SSD_TOL = {torch.float32: dict(atol=5e-4, rtol=5e-4),
+           torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
 
 
 @pytest.fixture
@@ -289,3 +296,72 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(dev):
         fa.flash_attention(torch.randn(1, 4, 16, 192, device=dev),
                            torch.randn(1, 2, 16, 192, device=dev),
                            torch.randn(1, 2, 16, 192, device=dev))
+
+
+# (B, L, H, P, G, N, chunk): the JAX kernel tests' shapes (G > 1 in the
+# third), mamba2-130m's serving prefill (one chunk), a long prefill, a
+# batch, and zamba2's SSM widths (64 heads, N 64)
+SSD_SHAPES = {"(1,64,2,16,1,8,16)": (1, 64, 2, 16, 1, 8, 16),
+              "(2,128,4,32,2,16,32)": (2, 128, 4, 32, 2, 16, 32),
+              "groups (1,32,8,8,4,4,8)": (1, 32, 8, 8, 4, 4, 8),
+              "mamba2 L64": (1, 64, 24, 64, 1, 128, 64),
+              "mamba2 L2048": (1, 2048, 24, 64, 1, 128, 64),
+              "mamba2 B4 L512": (4, 512, 24, 64, 1, 128, 64),
+              "zamba2 widths": (1, 256, 64, 64, 1, 64, 64)}
+
+
+def _ssd_inputs(rng, B, L, H, P, G, N, dtype, dev):
+    def t(shape, dt=dtype):
+        return torch.tensor(rng.standard_normal(shape), dtype=dt, device=dev)
+    f32 = torch.float32
+    # dt small, as the model's (dt_bias puts it near 1e-3 .. 1e-1), so the
+    # state carries across chunks
+    return (t((B, L, H, P)),
+            torch.nn.functional.softplus(t((B, L, H), f32) - 3),
+            -torch.exp(t((H,), f32)), t((B, L, G, N)), t((B, L, G, N)),
+            t((B, H, N, P), f32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("shape", SSD_SHAPES.values(), ids=SSD_SHAPES.keys())
+def test_ssd_scan_kernel_matches_plain(dev, dtype, with_state, shape):
+    *dims, chunk = shape
+    x, dt, A, Bm, Cm, init = _ssd_inputs(np.random.default_rng(9), *dims,
+                                         dtype, dev)
+    init = init if with_state else None
+    before = ss.launches
+    y, h = ss.ssd_scan(x, dt, A, Bm, Cm, chunk, init, return_state=True)
+    y_only = ss.ssd_scan(x, dt, A, Bm, Cm, chunk, init)
+    torch.cuda.synchronize()
+    assert ss.launches == before + 2
+    assert y.dtype == dtype and h.dtype == torch.float32
+    assert torch.equal(y, y_only)
+    want_y, want_h = ss.ssd_scan_plain(x, dt, A, Bm, Cm, chunk, init,
+                                       return_state=True)
+    torch.testing.assert_close(y.float(), want_y.float(), **SSD_TOL[dtype])
+    torch.testing.assert_close(h, want_h, **SSD_TOL[torch.float32])
+
+
+def test_ssd_scan_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    x, dt, A, Bm, Cm, init = _ssd_inputs(np.random.default_rng(10), 1, 32,
+                                         4, 16, 1, 8, torch.float32, dev)
+    with pytest.raises(TypeError):         # x, Bm, Cm share one dtype
+        ss.ssd_scan(x.half(), dt, A, Bm.half(), Cm.half(), 16)
+    with pytest.raises(TypeError):         # dt stays float32
+        ss.ssd_scan(x, dt.bfloat16(), A, Bm, Cm, 16)
+    with pytest.raises(TypeError):         # so does the state
+        ss.ssd_scan(x, dt, A, Bm, Cm, 16, init.bfloat16())
+    with pytest.raises(ValueError):
+        ss.ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A,
+                    Bm, Cm, 16)
+    with pytest.raises(ValueError):        # chunk not a multiple of 4
+        ss.ssd_scan(x, dt, A, Bm, Cm, 2)
+    with pytest.raises(ValueError):        # P not a multiple of 4
+        ss.ssd_scan(x[..., :6].contiguous(), dt, A, Bm, Cm, 16)
+    with pytest.raises(ValueError):
+        ss.ssd_scan(x, dt, A.cpu(), Bm, Cm, 16)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        ss.ssd_scan(x.requires_grad_(), dt, A, Bm, Cm, 16)
+    with torch.no_grad():
+        ss.ssd_scan(x, dt, A, Bm, Cm, 16)

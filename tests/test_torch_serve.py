@@ -4,7 +4,9 @@ Poisson workload on reduced GQA granite.  Every request must end terminal,
 no KV block may leak, and every served request's tokens must equal the
 JAX engine's greedy tokens for the same prompt and weights (exact).  The
 CLI also serves two models, reduced granite and reduced h2o-danube, on the
-dense backend with model swaps.
+dense backend with model swaps; reduced mamba2 alone on the dense backend
+(single-shot prefill); and reduced granite with reduced mamba2, swapping
+between a transformer and an SSM.
 """
 import argparse
 
@@ -78,3 +80,27 @@ def test_serve_cli_swaps_granite_and_danube_on_the_dense_backend(capsys):
     # (more where a swap flushed a request and it was recomputed)
     assert stats["swaps"] >= 1 and stats["tokens"] >= 8 * 3
     assert "swaps" in capsys.readouterr().out
+
+
+def test_serve_cli_serves_mamba2_on_the_dense_backend():
+    """``--backend cuda --arch mamba2-130m --device cpu``: every request is
+    admitted through the single-shot prefill and served."""
+    stats = serve.main(["--backend", "cuda", "--arch", "mamba2-130m",
+                        "--device", "cpu", "--requests", "8", "--rate",
+                        "20", "--max-new-tokens", "4", "--slots", "4",
+                        "--debug-invariants"])
+    assert stats["requests"] == stats["served"] == 8
+    assert stats["failed"] == stats["dropped_unserved"] == 0
+    assert stats["tokens"] == 8 * 3 and stats["swaps"] == 0
+
+
+def test_serve_cli_swaps_granite_and_mamba2():
+    """``--backend cuda --arch2 mamba2-130m``: a transformer and an SSM
+    share one engine through the swap LSO; every request is served."""
+    stats = serve.main(["--backend", "cuda", "--arch2", "mamba2-130m",
+                        "--device", "cpu", "--requests", "8", "--rate",
+                        "20", "--max-new-tokens", "4", "--slots", "4",
+                        "--debug-invariants"])
+    assert stats["requests"] == stats["served"] == 8
+    assert stats["failed"] == stats["dropped_unserved"] == 0
+    assert stats["swaps"] >= 1 and stats["tokens"] >= 8 * 3
