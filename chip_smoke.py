@@ -6,7 +6,11 @@ Phases, in order; any failure exits non-zero before the result lines:
 
   1. require CUDA, print the card's name and power limit;
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
-     per source, started together);
+     per source, started together); print one line per library with
+     ``ptxas``'s registers, spill bytes and static shared memory of each of
+     its kernels, and one with the count of tensor-core instructions
+     (``HMMA``/``HGMMA``) in its SASS (``cuobjdump -sass``): the float
+     paged prefill and flash kernels must hold them, or the run fails;
   3. kernel phase: the six serving kernels (paged decode, paged prefill,
      dense decode, each in float and int8-KV form) against their plain
      PyTorch versions on the card, in float32 and bfloat16, at granite-3-2b's
@@ -22,13 +26,17 @@ Phases, in order; any failure exits non-zero before the result lines:
      length-masked KV; none computes an int8 twin in one call, so its
      ``library_ms`` is null and the dequantize-then-SDPA time is printed
      beside it) at the serving shapes (device time, from CUDA-graph
-     replays), beside the bound, and each kernel once more at long context.
+     replays), beside the bound, and each kernel once more at long context
+     (the float prefill also beside SDPA over the gathered prefix plus the
+     chunk, and at one chunk round of a single long prompt: B 1, 128
+     queries over a 4096-token prefix).
      Then flash attention in f32 and bf16 at granite's widths (B 2, 32
      heads on 8, D 64, L 512), h2o-danube's D 80 with windows 8, 17 and
      64, the JAX tests' ragged cases (Lq 33 on Lkv 65, L 100) and L 2048;
      its autograd Function's gradients against autograd of the plain
      version (f32, 1e-4); and its time at the training phase's shape (f32)
-     beside its bound (the visible half of the causal square) and
+     beside its bound (the visible half of the causal square; f32 at the
+     3xTF32 rate, with the CUDA-core rate's bound beside it) and
      ``scaled_dot_product_attention``, and, for reference, in bf16, with
      a 64-token window (SDPA with a boolean mask) and at L 2048.  Then
      the SSD scan in f32 and bf16 (dt, A and the states f32), with and
@@ -102,6 +110,7 @@ import dataclasses
 import gc
 import importlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -112,7 +121,11 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# f32: the 3xTF32 rate, three TF32 products (495 TFLOP/s) per f32-accurate
+# one, the fastest f32-accurate rate of the card, on which the flash
+# kernel runs; the CUDA cores' f32 rate is printed beside it
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
+F32_CUDA_CORE_FLOPS = 67e12
 TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
        torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
 GRANITE, DANUBE, MAMBA = "granite-3-2b", "h2o-danube-1.8b", "mamba2-130m"
@@ -185,6 +198,84 @@ def reset_launches() -> None:
 def read_launches() -> dict:
     return {name: getattr(_module(name), counter)
             for name, (_, counter, _, _) in KERNELS.items()}
+
+
+# ---------------------------------------------------------------------------
+# build: resources and tensor-core instructions
+# ---------------------------------------------------------------------------
+
+# libraries whose float kernels must run their products on the tensor cores
+MMA_LIBRARIES = ("paged_prefill_attention", "flash_attention")
+
+
+def _short_names(mangled) -> dict:
+    """mangled -> short demangled kernel name (template arguments kept)."""
+    from repro_torch.kernels import build
+    mangled = sorted(set(mangled))
+    out = subprocess.run([build.cuda_tool("cu++filt"), *mangled],
+                         capture_output=True, text=True, timeout=60,
+                         check=True).stdout.splitlines()
+    short = {}
+    for m, d in zip(mangled, out):
+        d = d.replace("(int)", "")      # cu++filt's casts of template ints
+        name = re.search(r"(\w+(?:<[^()]*>)?)\(", d)
+        short[m] = name.group(1) if name else d
+    return short
+
+
+def kernel_resources() -> None:
+    """One line per library with ptxas's registers, spill bytes and static
+    shared memory of each kernel; one with the HMMA/HGMMA count of each
+    kernel's SASS.  Every tensor-core kernel of MMA_LIBRARIES must hold
+    tensor-core instructions."""
+    from repro_torch.kernels import build
+
+    for lib in build.SOURCES:
+        res, name = {}, None
+        for line in build.ptxas_log(lib).splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                name = m.group(1)
+                res[name] = {"registers": 0, "spill_bytes": 0,
+                             "smem_bytes": 0}
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and name:
+                res[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                res[name]["registers"] = int(m.group(1))
+                sm = re.search(r"(\d+) bytes smem", line)
+                res[name]["smem_bytes"] = int(sm.group(1)) if sm else 0
+        short = _short_names(res)
+        log(f"  ptxas {lib}: {len(res)} kernels, max registers "
+            f"{max(r['registers'] for r in res.values())}, max spill bytes "
+            f"{max(r['spill_bytes'] for r in res.values())}; " + json.dumps(
+                {short[k]: [r["registers"], r["spill_bytes"], r["smem_bytes"]]
+                 for k, r in res.items()}) + " (registers, spill stores + "
+            "loads bytes, static smem bytes)")
+
+        sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass",
+                               str(build.library_path(lib))],
+                              capture_output=True, text=True, timeout=120,
+                              check=True).stdout
+        counts, fn = {}, None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\w+)", line)
+            if m:
+                fn = m.group(1)
+                counts[fn] = 0
+            elif fn and re.search(r"\b(HMMA|HGMMA)\.", line):
+                counts[fn] += 1
+        short = _short_names(counts)
+        named = {short[k]: n for k, n in counts.items()}
+        log(f"  sass {lib}: HMMA/HGMMA instructions {sum(counts.values())} "
+            f"in {sum(1 for n in counts.values() if n)} of {len(counts)} "
+            f"kernels; " + json.dumps(named))
+        if lib in MMA_LIBRARIES:
+            mma = {k: n for k, n in named.items() if "mma_kernel" in k}
+            check(mma and all(mma.values()),
+                  f"{lib}: a tensor-core kernel without HMMA/HGMMA: {named}")
 
 
 # ---------------------------------------------------------------------------
@@ -340,6 +431,28 @@ def _dequant(x, scale, dtype):
     return (x.float() * scale.float()[..., None]).to(dtype)
 
 
+def prefill_library(args, dtype):
+    """SDPA computing the float paged prefill on ``args``: the gathered
+    prefix (positions < starts) plus the chunk's own keys (causal, <
+    valid), through one boolean mask."""
+    from repro_torch.kernels.paged_decode_attention import gather_pages
+
+    q, kp, vp, ck, cv, bt, st, vd = args
+    B, _, C, _ = q.shape
+    S = bt.shape[1] * kp.shape[2]
+    c = torch.arange(C, device="cuda")
+    mask = torch.cat([
+        (torch.arange(S, device="cuda")[None, :] < st[:, None])
+        [:, None, :].expand(B, C, S),
+        (c[None, :] <= c[:, None])[None] & (c[None, None, :]
+                                            < vd[:, None, None])],
+        dim=-1)[:, None]
+    k_all = torch.cat([gather_pages(kp, bt).to(dtype), ck], dim=2)
+    v_all = torch.cat([gather_pages(vp, bt).to(dtype), cv], dim=2)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k_all, v_all, attn_mask=mask, enable_gqa=True)
+
+
 def kernel_phase(shapes: dict):
     """Every kernel against its plain version over the cases below, then
     the timed records at the serving shapes.  Returns (records, failures)."""
@@ -456,28 +569,16 @@ def kernel_phase(shapes: dict):
     valid = rng.integers(4, 24, size=B)
     valid[-2:] = 0                               # free slots in the batch
     n_q = int(valid.sum())
-    S = nb * bs
-    c = torch.arange(C, device="cuda")
     for quant in (False, True):
         args = prefill_case(rng, gen, dtype, [0] * B, valid.tolist(), C,
                             quant, nb=nb, N=N)
-        q, ck, cv, bt, st, vd = args[0], *args[-5:]
-        pmask = torch.cat([
-            (torch.arange(S, device="cuda")[None, :] < st[:, None])
-            [:, None, :].expand(B, C, S),
-            (c[None, :] <= c[:, None])[None] & (c[None, None, :]
-                                                < vd[:, None, None])],
-            dim=-1)[:, None]
         if quant:
             library = None
             log("  paged_prefill_attention_quant: no single PyTorch call; at "
                 "the serving shapes the prefix is empty (every prompt fits "
                 "its first chunk), so the int8 pages are not read")
         else:
-            k_all = torch.cat([gather_pages(args[1], bt).to(dtype), ck], dim=2)
-            v_all = torch.cat([gather_pages(args[2], bt).to(dtype), cv], dim=2)
-            library = (lambda q=q, k_all=k_all, v_all=v_all: sdpa(
-                q, k_all, v_all, attn_mask=pmask, enable_gqa=True))
+            library = prefill_library(args, dtype)
         # only the valid query rows are needed (rows past valid[b] are
         # garbage the caller ignores); the prefix is empty, so no table
         # entry is live
@@ -519,39 +620,53 @@ def kernel_phase(shapes: dict):
 def long_context(rng, gen, failures) -> None:
     """Every kernel where the KV read is large: decode over 8 x 4096 tokens
     (67 MB of bf16 KV, past the 50 MB L2; half that, plus scales, in int8),
-    paged and dense, and a 128-token chunk over a 2048-token prefix; each
-    checked against its plain version and timed beside its bound, bf16."""
+    paged and dense, and a 128-token chunk over a 2048-token prefix for 4
+    sequences; each checked against its plain version and timed beside its
+    bound, bf16.  The float prefill also beside its plain version and SDPA,
+    and at one chunk round of a single long prompt (B 1, 128 queries over
+    a 4096-token prefix: 8 query tiles x 8 KV heads = 64 CTAs)."""
     dtype, esize, H, KVH, D = torch.bfloat16, 2, 32, 8, 64
     n, L = 8, 4096
     live = n * L
-    C, start, B = 128, 2048, 4
+
+    def p_bound(B, start, C, quant):
+        return bound(attn_bytes(esize, H=H, KVH=KVH, D=D, q_rows=B * C,
+                                kv_rows=B * start, quant=quant,
+                                chunk_rows=B * C, table=B * start // 16,
+                                ints=2 * B),
+                     4.0 * H * D * B * (start * C + C * (C + 1) / 2), dtype)
+
     for quant in (False, True):
         sfx = "_quant" if quant else ""
         d_bound = bound(attn_bytes(esize, H=H, KVH=KVH, D=D, q_rows=n,
                                    kv_rows=live, quant=quant,
                                    table=live // 16, ints=n),
                         4.0 * H * D * live, dtype)
-        p_bound = bound(attn_bytes(esize, H=H, KVH=KVH, D=D, q_rows=B * C,
-                                   kv_rows=B * start, quant=quant,
-                                   chunk_rows=B * C,
-                                   table=B * start // 16, ints=2 * B),
-                        4.0 * H * D * B * (start * C + C * (C + 1) / 2),
-                        dtype)
-        for name, args, (b, by), rows in (
-                ("paged_decode_attention" + sfx,
-                 decode_case(rng, gen, dtype, [L] * n, quant, nb=L // 16),
-                 d_bound, None),
-                ("decode_attention" + sfx,
-                 dense_case(rng, gen, dtype, [L] * n, L, quant), d_bound,
-                 None),
-                ("paged_prefill_attention" + sfx,
-                 prefill_case(rng, gen, dtype, [start] * B, [C] * B, C,
-                              quant), p_bound, [C] * B)):
-            check_case(failures, name, dtype, "long context", args, rows)
-            fn, _ = kernel_fns(name)
-            log(f"  long context {name}: " + json.dumps({
-                "ms": time_ms(lambda: fn(*args)), "bound_ms": b,
-                "bound_by": by}))
+        cases = [("paged_decode_attention" + sfx,
+                  decode_case(rng, gen, dtype, [L] * n, quant, nb=L // 16),
+                  d_bound, None, ""),
+                 ("decode_attention" + sfx,
+                  dense_case(rng, gen, dtype, [L] * n, L, quant), d_bound,
+                  None, ""),
+                 ("paged_prefill_attention" + sfx,
+                  prefill_case(rng, gen, dtype, [2048] * 4, [128] * 4, 128,
+                               quant), p_bound(4, 2048, 128, quant),
+                  [128] * 4, " B4 C128 prefix 2048")]
+        if not quant:
+            cases.append(("paged_prefill_attention",
+                          prefill_case(rng, gen, dtype, [4096], [128], 128),
+                          p_bound(1, 4096, 128, False), [128],
+                          " B1 C128 prefix 4096"))
+        for name, args, (b, by), rows, label in cases:
+            check_case(failures, name, dtype, "long context" + label, args,
+                       rows)
+            fn, plain = kernel_fns(name)
+            rec = {"ms": time_ms(lambda: fn(*args)), "bound_ms": b,
+                   "bound_by": by}
+            if name == "paged_prefill_attention":
+                rec["plain_ms"] = time_ms(lambda: plain(*args))
+                rec["library_ms"] = time_ms(prefill_library(args, dtype))
+            log(f"  long context {name}{label}: " + json.dumps(rec))
 
 
 # (B, H, KVH, Lq, Lkv, D, window) of the flash cases: granite's widths at
@@ -629,8 +744,9 @@ def flash_phase(gen, failures, records) -> None:
         # (query head, visible key, dimension): L(L+1)/2 visible pairs when
         # causal, min(i + 1, w) for query i under a window
         pairs = sum(min(i + 1, w or L) for i in range(L))
-        bound_ms, by = bound(esize * D * L * B * (2 * H + 2 * KVH),
-                             4.0 * B * H * D * pairs, dtype)
+        nbytes = esize * D * L * B * (2 * H + 2 * KVH)
+        flops = 4.0 * B * H * D * pairs
+        bound_ms, by = bound(nbytes, flops, dtype)
         rec = {"max_abs_err": err,
                "ms": time_ms(lambda: fa.flash_attention(q, k, v, window=w)),
                "plain_ms": time_ms(
@@ -638,7 +754,13 @@ def flash_phase(gen, failures, records) -> None:
                "bound_ms": bound_ms, "bound_by": by,
                "library_ms": time_ms(library)}
         label = f"{case} {str(dtype).replace('torch.', '')}"
-        log(f"  flash_attention {label}: " + json.dumps(rec))
+        cores = ""
+        if dtype == torch.float32:
+            cores_ms = max(nbytes / HBM_BYTES_PER_S,
+                           flops / F32_CUDA_CORE_FLOPS) * 1e3
+            cores = (f"; bound at the CUDA cores' f32 rate (67 TFLOP/s) "
+                     f"{cores_ms:.6f} ms")
+        log(f"  flash_attention {label}: " + json.dumps(rec) + cores)
         if dtype == torch.float32 and case == "granite B2 L512":
             records["flash_attention"] = rec     # the training phase's shape
 
@@ -1228,6 +1350,7 @@ def main() -> int:
     build.build()
     log(f"[build] {len(build.SOURCES)} CUDA sources in "
         f"{time.monotonic() - t0:.1f} s")
+    kernel_resources()
 
     t0 = time.monotonic()
     models = {}

@@ -5,6 +5,9 @@ library with a plain C interface (no PyTorch headers, so a build takes
 seconds).  The library's file name carries a hash of its sources and
 flags, so an edited source is rebuilt and a current one reused.  Builds
 land in ``build/kernels/`` at the repository root, which git ignores.
+``ptxas``'s resource report of every kernel (registers, spill bytes,
+static shared memory; ``-Xptxas -v``) is kept beside each library as
+``lib<name>-<hash>.log``.
 """
 from __future__ import annotations
 
@@ -22,20 +25,21 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("paged_decode_attention", "paged_prefill_attention",
            "decode_attention", "flash_attention", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str) -> str:
+    """Path of the CUDA toolkit's ``name`` (nvcc, cuobjdump, ...)."""
     home = Path(os.environ.get("CUDA_HOME") or "/usr/local/cuda")
-    if (home / "bin" / "nvcc").exists():
-        return str(home / "bin" / "nvcc")
-    found = shutil.which("nvcc")
+    if (home / "bin" / name).exists():
+        return str(home / "bin" / name)
+    found = shutil.which(name)
     if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
-                           "to build the CUDA kernels")
+        raise RuntimeError(f"{name} not found: set CUDA_HOME or put it on "
+                           f"PATH")
     return found
 
 
@@ -44,6 +48,11 @@ def library_path(name: str) -> Path:
     for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         digest.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def ptxas_log(name: str) -> str:
+    """nvcc's output for the current build of ``name`` (``-Xptxas -v``)."""
+    return library_path(name).with_suffix(".log").read_text()
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
@@ -56,7 +65,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
         out = library_path(name)
         if out.exists():
             continue
-        nvcc = nvcc or _nvcc()
+        nvcc = nvcc or cuda_tool("nvcc")
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -68,6 +77,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
         if proc.returncode != 0:
             failed.append(f"{name} (exit {proc.returncode}):\n{log}")
         else:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))

@@ -2,7 +2,8 @@
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Sequence
+from dataclasses import dataclass
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -10,6 +11,52 @@ from repro_torch.kernels import build
 
 # the kernels' ``dtype`` argument
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# The tensor-core attention kernels (csrc/mma_attention.cuh): four warps of
+# 16 query rows, 64-key tiles in a shared ring of stages per dtype,
+# head_dim padded to one of the widths instantiated there.
+MMA_THREADS = 128
+MMA_ROWS = 64
+MMA_TILE_KEYS = 64
+MMA_STAGES = {torch.float32: 2, torch.bfloat16: 3}
+MMA_D_PADS = (16, 32, 64, 80, 96, 128)
+
+
+@dataclass(frozen=True)
+class AttentionPlan:
+    """Launch plan of a tensor-core attention kernel (flash, float paged
+    prefill): one CTA per (query tile, KV head, sequence), its rows the GQA
+    group's heads times ``tile_q`` positions.  The C entry points take
+    ``tile_q``, ``d_pad`` and ``smem_bytes`` and refuse a plan they do not
+    instantiate or whose bytes differ from their ring's."""
+    group: int                  # query heads per KV head
+    tile_q: int                 # positions per CTA
+    rows: int                   # group * tile_q <= MMA_ROWS query rows
+    d_pad: int                  # head_dim padded to an instantiated width
+    grid: Tuple[int, int, int]  # (query tiles, KV heads, sequences)
+    smem_bytes: int             # the K/V ring (+ q's TF32 parts in f32)
+
+
+def attention_plan(B: int, H: int, KVH: int, L: int, D: int,
+                   dtype: torch.dtype) -> AttentionPlan:
+    """The plan for ``L`` query positions of ``H`` heads on ``KVH`` KV
+    heads, head_dim ``D``, in ``dtype``.  The ring holds stages x (K, V) x
+    64 key rows of ``d_pad`` elements plus 16 bytes (bank-conflict
+    padding); in f32 each thread's q fragments follow, as TF32 high parts
+    and residuals."""
+    if not (B >= 1 and KVH >= 1 and H % KVH == 0 and H // KVH <= MMA_ROWS
+            and L >= 1 and 1 <= D <= MMA_D_PADS[-1]):
+        raise ValueError(f"no attention plan for B={B} H={H} KVH={KVH} "
+                         f"L={L} D={D}")
+    group = H // KVH
+    tile_q = min(L, MMA_ROWS // group)
+    d_pad = next(p for p in MMA_D_PADS if p >= D)
+    esize = torch.empty((), dtype=dtype).element_size()
+    smem = MMA_STAGES[dtype] * 2 * MMA_TILE_KEYS * (d_pad * esize + 16)
+    if dtype == torch.float32:      # each thread's q, split for 3xTF32
+        smem += 2 * MMA_THREADS * (d_pad // 2) * 4
+    return AttentionPlan(group, tile_q, group * tile_q, d_pad,
+                         (-(-L // tile_q), KVH, B), smem)
 
 
 def on_cpu(tensors: Dict[str, torch.Tensor]) -> bool:

@@ -1,5 +1,7 @@
-// Shared pieces of the attention kernels: paged decode, paged prefill and
-// dense per-slot decode, each in float (f32 / bf16) and int8-KV variants.
+// Shared pieces of the CUDA-core attention kernels: paged decode and dense
+// per-slot decode, each in float (f32 / bf16) and int8-KV variants, and
+// the int8 twin of paged prefill (the float prefill and flash kernels run
+// on the tensor cores: mma_attention.cuh).
 //
 // Every kernel runs one CTA over a set of query rows that share one KV
 // head (the GQA group, times a tile of chunk positions for prefill) and

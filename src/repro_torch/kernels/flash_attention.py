@@ -24,9 +24,12 @@ Lkv, so every row sees its own key.
 What bounds the kernel on the H100 at the training path's shapes is the
 arithmetic, 4 flops per (query head, visible key, dimension): about half
 the square when causal, against q, k, v and out moved once.  One CTA per
-(sequence, KV head, tile of positions) holds the GQA group's rows, folds
-32-key tiles into an f32 online softmax on the CUDA cores, and walks only
-the key tiles one of its rows can see.
+(sequence, KV head, tile of positions) holds the GQA group's rows (the
+plan of ``common.attention_plan``), brings 64-key tiles in by ``cp.async``
+into a ring of shared stages, runs both products on the tensor cores
+(``mma.sync``: bf16, or 3xTF32 for f32, which keeps f32 accuracy) into an
+f32 online softmax held in registers, and walks only the key tiles one of
+its rows can see.
 
 ``flash_attention`` is a ``torch.autograd.Function``: its forward launches
 the kernel on CUDA tensors (or raises) and runs ``flash_attention_plain``
@@ -41,7 +44,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.common import check_cuda_inputs, launch, on_cpu
+from repro_torch.kernels.common import (attention_plan, check_cuda_inputs,
+                                       launch, on_cpu)
 from repro_torch.kernels.decode_attention import masked_softmax_attend
 
 # launches of the CUDA kernel in this process (the plain version does not
@@ -98,10 +102,12 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
                          f"Lq {Lq}, Lkv {Lkv}")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window must be >= 1, got {window}")
+    plan = attention_plan(B, H, KVH, Lq, D, q.dtype)
     out = torch.empty_like(q)
     launch("flash_attention", "flash_attention", q.device, [q, k, v, out],
            [B, H, KVH, Lq, Lkv, D, int(causal),
-            0 if window is None else int(window), dtype])
+            0 if window is None else int(window), dtype, plan.tile_q,
+            plan.d_pad, plan.smem_bytes])
     launches += 1
     return out
 

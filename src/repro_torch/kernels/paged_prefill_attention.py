@@ -27,11 +27,15 @@ valid[b] are garbage the caller ignores, as in the TPU kernel.
 What bounds it on the H100 is the bytes it reads: the live prefix KV,
 ``2 * sum(starts) * KVH * D`` elements, plus q, the chunk's k/v and the
 output, at 3.35 TB/s (at the engine's chunk lengths the flops stay under
-the tensor-core line).  The kernel streams the prefix pages in place,
+the tensor-core line).  The kernels stream the prefix pages in place,
 without densifying them, once per KV head and tile of at most 64 query
-rows (the GQA group times a tile of chunk positions), and folds prefix and
-chunk into one f32 online softmax; the int8 twin dequantizes prefix rows
-as they enter the f32 shared tile.
+rows (the GQA group times a tile of chunk positions), and fold prefix and
+chunk into one f32 online softmax.  The float kernel (plan:
+``common.attention_plan``) brings 64-key tiles in by ``cp.async`` into a
+ring of shared stages and runs both products on the tensor cores
+(``mma.sync``: bf16, or 3xTF32 for f32); the int8 twin keeps the
+CUDA-core body and dequantizes prefix rows as they enter its f32 shared
+tile.
 
 On CPU tensors the wrappers run ``paged_prefill_attention_plain`` /
 ``paged_prefill_attention_quant_plain``; on CUDA tensors they launch the
@@ -43,7 +47,8 @@ import math
 
 import torch
 
-from repro_torch.kernels.common import check_cuda_inputs, launch, on_cpu
+from repro_torch.kernels.common import (attention_plan, check_cuda_inputs,
+                                       launch, on_cpu)
 from repro_torch.kernels.decode_attention import (dequantize_rows,
                                                   masked_softmax_attend)
 from repro_torch.kernels.paged_decode_attention import gather_pages
@@ -162,11 +167,13 @@ def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
     B, H, C, D = q.shape
     N, KVH, bs, _ = k_pages.shape
     nb = block_table.shape[1]
+    plan = attention_plan(B, H, KVH, C, D, q.dtype)
     out = torch.empty_like(q)
     launch("paged_prefill_attention", "paged_prefill_attention", q.device,
            [q, k_pages, v_pages, chunk_k, chunk_v, block_table, starts, valid,
             out],
-           [B, H, KVH, C, D, N, bs, nb, dtype])
+           [B, H, KVH, C, D, N, bs, nb, dtype, plan.tile_q, plan.d_pad,
+            plan.smem_bytes])
     launches += 1
     return out
 

@@ -7,15 +7,17 @@ so it runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
 
-Tolerances: float32 atol = rtol = 1e-4 (the kernel sums the 64-term dot
-products and the softmax in another order than cuBLAS; measured errors sit
-near 1e-6); bfloat16 atol = rtol = 2e-2 (both sides accumulate in f32 from
-the same bf16 inputs and round the output to bf16, one ulp of which is
-2^-8 near 1).  The SSD scan in float32 is held to atol = rtol = 5e-4, the
-JAX kernel test's own tolerance: its sums run over up to 128 + 64 terms of
-unit-normal inputs, and at L 2048 one element of 3.1 M that nearly cancels
-differed by 1.03e-4 (measured on an H100).  Its final state is f32
-whatever x's dtype and held to that tolerance too.
+Tolerances: float32 atol = rtol = 1e-4 (the kernels sum the dot products
+and the softmax in another order than cuBLAS, the tensor-core ones as
+3xTF32 products; measured errors sit near 1e-6 to 5e-6); bfloat16 atol =
+rtol = 2e-2 (both sides accumulate in f32 from the same bf16 inputs and
+round the output to bf16, one ulp of which is 2^-8 near 1; the
+tensor-core kernels also round the probabilities to bf16).  The SSD scan
+in float32 is held to atol = rtol = 5e-4, the JAX kernel test's own
+tolerance: its sums run over up to 128 + 64 terms of unit-normal inputs,
+and at L 2048 one element of 3.1 M that nearly cancels differed by
+1.03e-4 (measured on an H100).  Its final state is f32 whatever x's dtype
+and held to that tolerance too.
 """
 import numpy as np
 import pytest
@@ -80,20 +82,47 @@ def test_paged_decode_kernel_matches_plain(dev, dtype, H, KVH, D, bs):
     assert torch.count_nonzero(out[-1]) == 0       # no valid key -> 0
 
 
+# (H, KVH, D, bs, C, starts, valid, q scale); starts/valid None: the first
+# cases' rows (an empty prefix, prefixes past and inside pages, a valid ==
+# 0 row).  Then the tensor-core kernel's edges: prefixes of 63, 64, 65,
+# 127 and 128 tokens around its 64-key tiles, prefixes ending mid-page in
+# 8- and 16-token pages, chunks of 1, 15, 17, 100 and 129 positions, GQA
+# groups of 1, 3, 4, 8 and 64, head_dim 16, 80 and 128 (and 17, whose rows
+# the loader copies element by element), and q scaled so that scores reach
+# about +-30 (3xTF32's residual term carries f32 there).
+# Rows past a table's live blocks hold the sentinel N + 3.
+PREFILL_CASES = [
+    (32, 8, 64, 16, 16, None, None, 1.0),
+    (32, 8, 64, 16, 128, None, None, 1.0),
+    (32, 8, 64, 16, 512, None, None, 1.0),
+    (6, 2, 128, 16, 100, None, None, 1.0),
+    (4, 4, 32, 8, 64, None, None, 1.0),
+    (32, 8, 64, 16, 64, [63, 64, 65, 127, 128], [64, 64, 40, 64, 1], 1.0),
+    (12, 4, 80, 8, 17, [5, 13, 70, 0], [17, 9, 17, 0], 1.0),
+    (4, 4, 16, 16, 15, [7, 30, 100], [15, 15, 8], 1.0),
+    (32, 4, 128, 16, 1, [0, 1, 65, 300], [1, 1, 1, 0], 1.0),
+    (8, 2, 128, 16, 129, [0, 64, 191], [129, 100, 129], 1.0),
+    (4, 4, 80, 8, 100, [63, 64, 65], [100, 37, 64], 1.0),
+    (64, 1, 64, 16, 17, [16, 40], [17, 3], 1.0),
+    (8, 2, 17, 8, 40, [70, 3], [40, 25], 1.0),     # rows not 16-byte wide
+    (32, 8, 64, 16, 128, [127, 0, 64], [128, 128, 90], 8.0),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,KVH,D,bs,C", [(32, 8, 64, 16, 16),
-                                           (32, 8, 64, 16, 128),
-                                           (32, 8, 64, 16, 512),
-                                           (6, 2, 128, 16, 100),
-                                           (4, 4, 32, 8, 64)])
-def test_paged_prefill_kernel_matches_plain(dev, dtype, H, KVH, D, bs, C):
+@pytest.mark.parametrize("H,KVH,D,bs,C,starts,valid,qscale", PREFILL_CASES)
+def test_paged_prefill_kernel_matches_plain(dev, dtype, H, KVH, D, bs, C,
+                                            starts, valid, qscale):
     rng = np.random.default_rng(1)
-    starts = np.array([0, 21, 2 * bs, 300, 7], np.int32)
-    valid = np.array([C, C, C // 2 + 3, 0, C - 5], np.int32)
+    starts = np.array([0, 21, 2 * bs, 300, 7] if starts is None else starts,
+                      np.int32)
+    valid = np.array([C, C, C // 2 + 3, 0, C - 5] if valid is None
+                     else valid, np.int32)
     B = len(starts)
     nb = -(-(int(starts.max()) + C) // bs)
     N = 2 * B * nb
-    q = torch.tensor(rng.standard_normal((B, H, C, D)), dtype=dtype, device=dev)
+    q = torch.tensor(rng.standard_normal((B, H, C, D)) * qscale, dtype=dtype,
+                     device=dev)
     ck = torch.tensor(rng.standard_normal((B, KVH, C, D)), dtype=dtype,
                       device=dev)
     cv = torch.tensor(rng.standard_normal((B, KVH, C, D)), dtype=dtype,
@@ -110,6 +139,8 @@ def test_paged_prefill_kernel_matches_plain(dev, dtype, H, KVH, D, bs, C):
     for b, n in enumerate(valid):
         torch.testing.assert_close(out[b, :, :n].float(),
                                    want[b, :, :n].float(), **TOL[dtype])
+        if n == 0:                       # an inactive row reads nothing
+            assert torch.count_nonzero(out[b]) == 0
 
 
 def _int8_rows(rng, shape, dtype, dev):
@@ -229,29 +260,48 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,H,KVH,Lq,Lkv,D,window", [
-    (2, 32, 8, 512, 512, 64, None),     # granite's widths
-    (1, 32, 8, 200, 200, 80, 17),       # h2o-danube's head_dim, a window
-    (2, 8, 2, 100, 100, 128, None),     # D 128, not a tile multiple
-    (1, 4, 1, 33, 65, 16, None),        # MQA, Lq < Lkv
-    (2, 4, 2, 80, 80, 32, 8),
-    (2, 4, 2, 80, 80, 32, 64)])
+@pytest.mark.parametrize("B,H,KVH,Lq,Lkv,D,window,qscale", [
+    (2, 32, 8, 512, 512, 64, None, 1.0),    # granite's widths
+    (1, 32, 8, 200, 200, 80, 17, 1.0),      # h2o-danube's head_dim, a window
+    (2, 8, 2, 100, 100, 128, None, 1.0),    # D 128, not a tile multiple
+    (1, 4, 1, 33, 65, 16, None, 1.0),       # MQA, Lq < Lkv
+    (2, 4, 2, 80, 80, 32, 8, 1.0),
+    (2, 4, 2, 80, 80, 32, 64, 1.0),
+    # the tensor-core kernel's edges: Lq 1, 15, 17, 100 and 129 around its
+    # 64-key tiles, groups of 1, 3, 4, 8 and 64, D 16, 80 and 128, window
+    # edges inside a 64-key tile, rows past Lkv + window that see no key
+    # (exact zeros), scores reaching about +-30 (3xTF32's residual term)
+    (1, 4, 4, 1, 1, 64, None, 1.0),
+    (2, 12, 4, 15, 15, 80, None, 1.0),
+    (1, 8, 1, 17, 17, 128, None, 1.0),
+    (2, 16, 4, 129, 129, 16, None, 1.0),
+    (1, 3, 1, 100, 100, 80, 40, 1.0),
+    (1, 8, 8, 300, 300, 64, 100, 1.0),
+    (1, 64, 1, 70, 70, 32, None, 1.0),
+    (1, 4, 2, 100, 40, 32, 8, 1.0),
+    (2, 8, 2, 90, 90, 17, 33, 1.0),         # rows not 16-byte wide
+    (2, 32, 8, 256, 256, 64, None, 8.0),
+    (1, 32, 8, 129, 129, 80, 33, 8.0)])
 def test_flash_kernel_matches_plain(dev, dtype, B, H, KVH, Lq, Lkv, D,
-                                    window):
+                                    window, qscale):
     rng = np.random.default_rng(6)
-    q, k, v = (torch.tensor(rng.standard_normal(shape), dtype=dtype,
+    q, k, v = (torch.tensor(rng.standard_normal(shape) * scale, dtype=dtype,
                             device=dev)
-               for shape in ((B, H, Lq, D), (B, KVH, Lkv, D),
-                             (B, KVH, Lkv, D)))
+               for shape, scale in (((B, H, Lq, D), qscale),
+                                    ((B, KVH, Lkv, D), 1.0),
+                                    ((B, KVH, Lkv, D), 1.0)))
     before = fa.launches
     out = fa.flash_attention(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()
     assert fa.launches == before + 1
     want = fa.flash_attention_plain(q, k, v, causal=True, window=window)
     torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+    blind = ~fa.visible_keys(Lq, Lkv, True, window, dev).any(-1)
+    assert torch.count_nonzero(out[:, :, blind]) == 0  # no visible key -> 0
 
 
-@pytest.mark.parametrize("causal,window", [(False, None), (False, 9)])
+@pytest.mark.parametrize("causal,window", [(False, None), (False, 9),
+                                           (False, 40), (False, 65)])
 def test_flash_kernel_without_the_causal_mask(dev, causal, window):
     rng = np.random.default_rng(7)
     q = torch.tensor(rng.standard_normal((1, 8, 70, 64)), dtype=torch.float32,
