@@ -1,6 +1,11 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --decode-timings [SRC]
+
+The second form times only the float decode kernels and the granite
+decode steps (``decode_timings``), with the package under SRC, so that a
+parent commit's kernels can be timed beside this one's in one call.
 
 Phases, in order; any failure exits non-zero before the result lines:
 
@@ -10,7 +15,8 @@ Phases, in order; any failure exits non-zero before the result lines:
      ``ptxas``'s registers, spill bytes and static shared memory of each of
      its kernels, and one with the count of tensor-core instructions
      (``HMMA``/``HGMMA``) in its SASS (``cuobjdump -sass``): the float
-     paged prefill and flash kernels must hold them, or the run fails;
+     paged prefill, flash and paged / dense decode kernels must hold
+     them, or the run fails;
   3. kernel phase: the six serving kernels (paged decode, paged prefill,
      dense decode, each in float and int8-KV form) against their plain
      PyTorch versions on the card, in float32 and bfloat16, at granite-3-2b's
@@ -27,9 +33,11 @@ Phases, in order; any failure exits non-zero before the result lines:
      ``library_ms`` is null and the dequantize-then-SDPA time is printed
      beside it) at the serving shapes (device time, from CUDA-graph
      replays), beside the bound, and each kernel once more at long context
-     (the float prefill also beside SDPA over the gathered prefix plus the
-     chunk, and at one chunk round of a single long prompt: B 1, 128
-     queries over a 4096-token prefix).
+     (the float decode kernels also beside SDPA over the gathered or
+     length-masked KV, with their split count; the float prefill also
+     beside SDPA over the gathered prefix plus the chunk, and at one chunk
+     round of a single long prompt: B 1, 128 queries over a 4096-token
+     prefix).
      Then flash attention in f32 and bf16 at granite's widths (B 2, 32
      heads on 8, D 64, L 512), h2o-danube's D 80 with windows 8, 17 and
      64, the JAX tests' ragged cases (Lq 33 on Lkv 65, L 100) and L 2048;
@@ -70,7 +78,9 @@ Phases, in order; any failure exits non-zero before the result lines:
           one model swap: ``decode_attention`` and ``ssd_scan`` only;
      b-f must serve all 8 requests;
   5. full-width step times of each path, device time (CUDA-graph replay)
-     against the eager call; for mamba2 one decode step at 8 slots and one
+     against the eager call; granite's decode step also at 8 slots x 4096
+     tokens of context, page pool and dense; for mamba2 one decode step at
+     8 slots and one
      single-shot prefill of 64 and of 512 tokens, with the launch count
      of one prefill (one per layer) and of one decode step (none);
   6. long-prompt phase: one full-width engine with 64-token chunks serves
@@ -205,7 +215,8 @@ def read_launches() -> dict:
 # ---------------------------------------------------------------------------
 
 # libraries whose float kernels must run their products on the tensor cores
-MMA_LIBRARIES = ("paged_prefill_attention", "flash_attention")
+MMA_LIBRARIES = ("paged_prefill_attention", "flash_attention",
+                 "paged_decode_attention", "decode_attention")
 
 
 def _short_names(mangled) -> dict:
@@ -453,6 +464,43 @@ def prefill_library(args, dtype):
         q, k_all, v_all, attn_mask=mask, enable_gqa=True)
 
 
+FLOAT_DECODE = ("paged_decode_attention", "decode_attention")
+
+
+def decode_library(name, args):
+    """SDPA computing the float decode kernel ``name`` on ``args``: over
+    the KV gathered through the block table (paged) or over the dense
+    cache, masked by lengths."""
+    from repro_torch.kernels.paged_decode_attention import gather_pages
+
+    if name == "paged_decode_attention":
+        q, kp, vp, bt, ln = args
+        k, v = (gather_pages(p, bt).to(q.dtype) for p in (kp, vp))
+    else:
+        q, k, v, ln = args
+    mask = (torch.arange(k.shape[2], device="cuda")[None, :]
+            < ln[:, None])[:, None, None]
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)
+
+
+def decode_splits(name, args):
+    """CTAs per (sequence, KV head) of the float decode kernel ``name`` on
+    ``args``, from its launch plan (None for a tree without one)."""
+    from repro_torch.kernels import common
+
+    if not hasattr(common, "decode_plan"):
+        return None
+    q = args[0]
+    B, H, D = q.shape
+    if name == "paged_decode_attention":
+        KVH, bs = args[1].shape[1:3]
+        cap = args[3].shape[1] * bs
+    else:
+        KVH, cap = args[1].shape[1:3]
+    return common.decode_plan(B, H, KVH, cap, D, q.dtype).splits
+
+
 def kernel_phase(shapes: dict):
     """Every kernel against its plain version over the cases below, then
     the timed records at the serving shapes.  Returns (records, failures)."""
@@ -556,10 +604,7 @@ def kernel_phase(shapes: dict):
                         q4, k, v, attn_mask=mask, enable_gqa=True))}))
             library = None
         else:
-            k = gather_pages(args[1], bt).to(dtype)
-            v = gather_pages(args[2], bt).to(dtype)
-            library = (lambda q4=q4, k=k, v=v: sdpa(
-                q4, k, v, attn_mask=mask, enable_gqa=True))
+            library = decode_library("paged_decode_attention", args)
         timed("paged_decode_attention" + ("_quant" if quant else ""), args,
               attn_bytes(esize, H=H, KVH=KVH, D=D, q_rows=B, kv_rows=live,
                          quant=quant, table=live_blocks, ints=B),
@@ -601,8 +646,7 @@ def kernel_phase(shapes: dict):
                                  attn_mask=dmask, enable_gqa=True))}))
             library = None
         else:
-            library = (lambda q4=q4, k=args[1], v=args[2]: sdpa(
-                q4, k, v, attn_mask=dmask, enable_gqa=True))
+            library = decode_library("decode_attention", args)
         timed("decode_attention" + ("_quant" if quant else ""), args,
               attn_bytes(esize, H=H, KVH=KVH, D=D, q_rows=B, kv_rows=live,
                          quant=quant, ints=B),
@@ -666,6 +710,9 @@ def long_context(rng, gen, failures) -> None:
             if name == "paged_prefill_attention":
                 rec["plain_ms"] = time_ms(lambda: plain(*args))
                 rec["library_ms"] = time_ms(prefill_library(args, dtype))
+            if name in FLOAT_DECODE:
+                rec["library_ms"] = time_ms(decode_library(name, args))
+                rec["splits"] = decode_splits(name, args)
             log(f"  long context {name}{label}: " + json.dumps(rec))
 
 
@@ -1003,6 +1050,38 @@ def step_timings(registry) -> None:
         torch.cuda.empty_cache()
 
 
+def long_step_timings(model, params) -> None:
+    """Informational: one full-width decode step at 8 slots x 4096 tokens
+    of context (each slot attends 4096 keys), on the page pool and on the
+    dense cache, device time from CUDA-graph replays against the eager
+    call.  The caches (2.7 GB each in bf16) are filled with random values
+    directly, so no 4096-token prefill runs."""
+    B, L, bs = 8, 4096, 16
+    nb = L // bs
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    tokens = torch.arange(B, dtype=torch.int32, device="cuda")
+    lengths = torch.full((B,), L - 1, dtype=torch.int32, device="cuda")
+    bt = torch.arange(B * nb, dtype=torch.int32, device="cuda").reshape(B, nb)
+    for label, make, step in (
+            ("page pool", lambda: model.init_paged_cache(
+                B * nb, bs, torch.bfloat16, "cuda"),
+             lambda c: model.decode_step_paged(params, c, tokens, lengths,
+                                               bt)),
+            ("dense", lambda: model.init_cache(B, L, torch.bfloat16, "cuda"),
+             lambda c: model.decode_step(params, c, tokens, lengths))):
+        cache = make()
+        for leaf in cache.values():
+            leaf.normal_(generator=gen)
+        device = time_ms(lambda: step(cache), iters=3, replays=3)
+        eager = eager_ms(lambda: step(cache), iters=5)
+        log(f"  granite {label} decode step, 8 slots x {L} tokens of "
+            f"context: device {device:.3f} ms, eager {eager:.3f} ms, host "
+            f"share {1 - device / eager:.3f}")
+        del cache
+        torch.cuda.empty_cache()
+
+
 def ssm_step_timings(model, params) -> None:
     """Informational, mamba2: one full-width decode step at the serve
     phases' 8 slots and one single-shot prefill of 64 and of 512 tokens
@@ -1329,10 +1408,64 @@ def training_reference_phase() -> None:
         check(ok_params, f"{name}: params part by {diff}")
 
 
+def decode_timings(src: Path) -> int:
+    """``--decode-timings [SRC]``: only the float decode kernels and the
+    granite decode steps, with the ``repro_torch`` package under ``SRC``
+    (default: this checkout's ``src``), so that another tree's kernels
+    (a ``git archive`` of a parent commit) are timed by the same code in
+    the same call.  Each kernel against its plain version, then its device
+    time and SDPA's at the serving shape and at 8 x 4096 (bf16), then the
+    full-width granite decode step at 40 and at 4096 tokens of context, on
+    the page pool and the dense cache.  The last line is the records'
+    JSON."""
+    sys.path.insert(0, str(src.resolve()))
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model
+
+    log(f"[decode-timings] repro_torch from {src}")
+    build.build(["paged_decode_attention", "decode_attention"])
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    shapes = serving_shapes()
+    dtype, failures, records = torch.bfloat16, [], {}
+    serve_lengths = rng.integers(5, 41, size=shapes["B"]).tolist()
+    for label, lengths, nb, S in (
+            ("serving", serve_lengths, shapes["nb"], shapes["S1"]),
+            ("8 x 4096", [4096] * 8, 256, 4096)):
+        for name in FLOAT_DECODE:
+            args = (decode_case(rng, gen, dtype, lengths, nb=nb,
+                                N=max(len(lengths) * nb, shapes["N"]))
+                    if name == "paged_decode_attention"
+                    else dense_case(rng, gen, dtype, lengths, S))
+            err = check_case(failures, name, dtype, label, args)
+            fn, _ = kernel_fns(name)
+            records[f"{name} {label}"] = {
+                "ms": time_ms(lambda: fn(*args)),
+                "library_ms": time_ms(decode_library(name, args)),
+                "splits": decode_splits(name, args), "max_abs_err": err}
+            log(f"  {name} {label}: " + json.dumps(records[f"{name} {label}"]))
+    check(not failures, f"kernels disagree with their plain versions: "
+                        f"{failures}")
+    cfg = get_arch(GRANITE)
+    gen.manual_seed(0)
+    model = build_model(cfg)
+    params = model.init(gen, torch.bfloat16, "cuda")
+    step_timings((("granite paged", (model, params), True),
+                  ("granite dense", (model, params), False)))
+    long_step_timings(model, params)
+    print(json.dumps(records), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--decode-timings"]:
+        return decode_timings(Path(sys.argv[2]) if len(sys.argv) > 2
+                              else ROOT / "src")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_arch
     from repro_torch.kernels import build
@@ -1424,6 +1557,7 @@ def main() -> int:
         ("granite dense", (g_model, g_params), False),
         ("granite dense int8", (g_quant, g_params), False),
         ("h2o-danube dense", (d_model, d_params), False)))
+    long_step_timings(g_model, g_params)
     ssm_step_timings(m_model, m_params)
     log(f"[step] in {time.monotonic() - t0:.1f} s")
 

@@ -17,16 +17,24 @@
 // Bound on the H100: the bytes of live KV read, 2 * sum_b min(lengths[b],
 // S) * KVH * D * sizeof(element) (plus the int8 twin's scales), over
 // 3.35 TB/s; 4 flops per key, query head and dimension is far below the
-// tensor-core line.  One CTA per (b, kv_head) holds the whole GQA group of
-// query rows, so each live row is read once per KV head, and walks the
-// contiguous (S, D) rows of its slot only up to the last live one: the
+// tensor-core line.  The CTAs of a (b, kv_head) hold the whole GQA group
+// of query rows, so each live row is read once per KV head, and walk the
+// contiguous (S, D) rows of the slot only up to the last live one: the
 // tail is masked by the loop bound, not padded to a tile multiple (the
-// Pallas wrapper pads S to 256).  The int8 twin dequantizes each row as
-// it lands in the f32 shared tile.
+// Pallas wrapper pads S to 256).
+//
+// The float kernel is the split-KV tensor-core decode of decode_mma.cuh:
+// (splits, KVH, B) CTAs, 64-key tiles by 16-byte cp.async, the group's
+// rows on mma.sync, and a merge kernel when the plan has more than one
+// split (kernels/common.py::decode_plan).  The int8 twin still runs the
+// CUDA-core body of paged_attention.cuh (one CTA per (b, kv_head), 32-key
+// tiles), dequantizing each row as it lands in the f32 shared tile.
+#include "decode_mma.cuh"
 #include "paged_attention.cuh"
 
 namespace paged {
 
+// The int8 twin's body (CUDA cores, 32-key tiles; KV = Int8KV<T>).
 template <typename T, typename KV>
 __global__ void __launch_bounds__(kThreads)
     decode_kernel(const T* __restrict__ q, KV kv,
@@ -73,24 +81,30 @@ int launch(const void* q, KV kv, const int* lengths, void* out, int B, int H,
 
 }  // namespace paged
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16; splits, Dp, smem: the launch plan
+// (kernels/common.py::decode_plan); ws and tickets: its f32 workspace and
+// B * KVH zeroed int32 arrival counters when splits > 1, else NULL.
+// Returns a cudaError_t (0 = launched).
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
-                                const void* lengths, void* out, int B, int H,
-                                int KVH, int S, int D, int dtype,
-                                void* stream) {
-  using namespace paged;
-  if (!valid_heads(B, H, KVH, D) || S < 1) return (int)cudaErrorInvalidValue;
+                                const void* lengths, void* out, void* ws,
+                                void* tickets, int B, int H, int KVH, int S,
+                                int D, int dtype, int splits, int Dp,
+                                int smem, void* stream) {
+  using namespace mma_attn;
+  if (!paged::valid_heads(B, H, KVH, D) || S < 1)
+    return (int)cudaErrorInvalidValue;
   const int* len = (const int*)lengths;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch<float>(q, FloatKV<float>{(const float*)k, (const float*)v},
-                         len, out, B, H, KVH, S, D, st);
+    return launch_decode<float>(
+        q, DenseSource<float>{(const float*)k, (const float*)v, S, KVH}, len,
+        out, ws, tickets, B, H, KVH, D, splits, Dp, smem, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(
+    return launch_decode<__nv_bfloat16>(
         q,
-        FloatKV<__nv_bfloat16>{(const __nv_bfloat16*)k,
-                               (const __nv_bfloat16*)v},
-        len, out, B, H, KVH, S, D, st);
+        DenseSource<__nv_bfloat16>{(const __nv_bfloat16*)k,
+                                   (const __nv_bfloat16*)v, S, KVH},
+        len, out, ws, tickets, B, H, KVH, D, splits, Dp, smem, st);
   return (int)cudaErrorInvalidValue;
 }
 

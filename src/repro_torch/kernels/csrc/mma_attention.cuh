@@ -54,8 +54,7 @@ constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRows = 16 * kWarps;  // query rows per CTA, 16 per warp
 constexpr int kTileN = 64;          // keys per tile
-constexpr int kNB = kTileN / 8;     // 8-key blocks of a tile (n of m16n8)
-constexpr int kTpr = kThreads / kTileN;  // loader threads per key row
+constexpr int kRowThreads = kThreads / kTileN;  // loader threads a key row (prefill, flash)
 // tiles in the shared ring: f32 at Dp 128 fits only two beside its q
 constexpr int kStagesF32 = 2;
 constexpr int kStagesBf16 = 3;
@@ -181,53 +180,63 @@ __device__ __forceinline__ void zero16(void* dst) {
 // Tile loader
 // ---------------------------------------------------------------------------
 
-// Start copying one key tile into the stage buffers ks / vs.  Thread t
-// copies tile row j = t / kTpr, every kTpr-th piece from t % kTpr, so each
-// pair of lanes reads one 32-byte sector a step.  Rows j < nk come from
-// global row ``row`` of k and v (D elements each; the caller computed it a
-// tile ahead); rows j >= nk and columns >= D are zero-filled.  With
-// ``vec`` (every row 16-byte aligned: D * sizeof(T) % 16 == 0 and aligned
-// bases) the copies are 16-byte cp.async pieces; otherwise element by
-// element through registers (D not a multiple of 8 in bf16, of 4 in f32).
-// The caller's barrier after cp_async_wait() publishes either.
-template <typename T, int Dp>
+// Start copying one key tile into the stage buffers ks / vs.  RowThreads
+// threads share a row: thread t copies the kRpt = kTileN * RowThreads /
+// kThreads consecutive tile rows j = t / RowThreads * kRpt + p, every
+// RowThreads-th piece from t % RowThreads.  With two threads a row
+// (prefill, flash) each pair of lanes reads one 32-byte sector a step;
+// with eight (decode) eight lanes read one whole 128-byte row, and a
+// warp's four loader groups read 16 consecutive rows (one 16-token page)
+// in four steps.  Rows j < nk come from global row ``row[p]`` of k and v
+// (D elements each; the caller computed it a tile ahead); rows j >= nk
+// and columns >= D are zero-filled.  With ``vec`` (every row 16-byte
+// aligned: D * sizeof(T) % 16 == 0 and aligned bases) the copies are
+// 16-byte cp.async pieces; otherwise element by element through
+// registers (D not a multiple of 8 in bf16, of 4 in f32).  The caller's
+// barrier after cp_async_wait() publishes either.
+template <typename T, int Dp, int RowThreads,
+          int kRpt = kTileN * RowThreads / kThreads>
 __device__ __forceinline__ void load_tile(T* ks, T* vs,
                                           const T* __restrict__ k,
-                                          const T* __restrict__ v, size_t row,
-                                          int nk, int D, bool vec) {
+                                          const T* __restrict__ v,
+                                          const size_t (&row)[kRpt], int nk,
+                                          int D, bool vec) {
   using L = Layout<T, Dp>;
-  const int j = threadIdx.x / kTpr;
-  const int par = threadIdx.x % kTpr;
-  T* kd = ks + j * L::kStride;
-  T* vd = vs + j * L::kStride;
-  if (j < nk) {
-    const T* kg = k + row * D;
-    const T* vg = v + row * D;
-    if (vec) {
-      const int n = D / L::kPer;  // pieces that hold data
+  const int par = threadIdx.x % RowThreads;
 #pragma unroll
-      for (int i = par; i < L::kPieces; i += kTpr) {
-        if (i < n) {
-          cp_async16(kd + i * L::kPer, kg + i * L::kPer);
-          cp_async16(vd + i * L::kPer, vg + i * L::kPer);
-        } else {
-          zero16(kd + i * L::kPer);
-          zero16(vd + i * L::kPer);
+  for (int p = 0; p < kRpt; ++p) {
+    const int j = threadIdx.x / RowThreads * kRpt + p;
+    T* kd = ks + j * L::kStride;
+    T* vd = vs + j * L::kStride;
+    if (j < nk) {
+      const T* kg = k + row[p] * D;
+      const T* vg = v + row[p] * D;
+      if (vec) {
+        const int n = D / L::kPer;  // pieces that hold data
+#pragma unroll
+        for (int i = par; i < L::kPieces; i += RowThreads) {
+          if (i < n) {
+            cp_async16(kd + i * L::kPer, kg + i * L::kPer);
+            cp_async16(vd + i * L::kPer, vg + i * L::kPer);
+          } else {
+            zero16(kd + i * L::kPer);
+            zero16(vd + i * L::kPer);
+          }
+        }
+      } else {
+        const T z = from_float<T>(0.f);
+#pragma unroll 4
+        for (int d = par; d < Dp; d += RowThreads) {
+          kd[d] = d < D ? kg[d] : z;
+          vd[d] = d < D ? vg[d] : z;
         }
       }
     } else {
-      const T z = from_float<T>(0.f);
-#pragma unroll 4
-      for (int d = par; d < Dp; d += kTpr) {
-        kd[d] = d < D ? kg[d] : z;
-        vd[d] = d < D ? vg[d] : z;
-      }
-    }
-  } else {
 #pragma unroll
-    for (int i = par; i < L::kPieces; i += kTpr) {
-      zero16(kd + i * L::kPer);
-      zero16(vd + i * L::kPer);
+      for (int i = par; i < L::kPieces; i += RowThreads) {
+        zero16(kd + i * L::kPer);
+        zero16(vd + i * L::kPer);
+      }
     }
   }
 }
@@ -265,19 +274,20 @@ struct Mma<__nv_bfloat16, Dp> {
       }
   }
 
-  // s[n] = q . k for the keys 8n .. 8n + 7 of the tile in ks
-  __device__ __forceinline__ void scores(const T* ks, float (&s)[kNB][4]) const {
+  // s[n] = q . k for the keys 8n .. 8n + 7 of the NB * 8 keys at ks
+  template <int NB>
+  __device__ __forceinline__ void scores(const T* ks, float (&s)[NB][4]) const {
     const int lane = threadIdx.x & 31;
     // x4 matrices: (keys +0, cols +0), (keys +0, cols +8), (keys +8, cols
     // +0), (keys +8, cols +8) -> b0, b1 of key block 2n2 and of 2n2 + 1
     const uint32_t base = smem_u32(ks + ((lane >> 4) * 8 + (lane & 7)) * L::kStride +
                                    ((lane >> 3) & 1) * 8);
 #pragma unroll
-    for (int n = 0; n < kNB; ++n)
+    for (int n = 0; n < NB; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
-    for (int n2 = 0; n2 < kNB / 2; ++n2)
+    for (int n2 = 0; n2 < NB / 2; ++n2)
 #pragma unroll
       for (int kk = 0; kk < Dp / 16; ++kk) {
         uint32_t b[4];
@@ -287,8 +297,10 @@ struct Mma<__nv_bfloat16, Dp> {
       }
   }
 
-  // o += p . v over the tile's keys (p: the probabilities in s's layout)
-  __device__ __forceinline__ void pv(const T* vs, const float (&p)[kNB][4],
+  // o += p . v over the NB * 8 keys at vs (p: the probabilities in s's
+  // layout)
+  template <int NB>
+  __device__ __forceinline__ void pv(const T* vs, const float (&p)[NB][4],
                                      float (&o)[Dp / 8][4]) const {
     const int lane = threadIdx.x & 31;
     // x4.trans matrices: (keys +0, cols +0), (keys +8, cols +0), (keys +0,
@@ -296,7 +308,7 @@ struct Mma<__nv_bfloat16, Dp> {
     const uint32_t base = smem_u32(vs + (((lane >> 3) & 1) * 8 + (lane & 7)) * L::kStride +
                                    (lane >> 4) * 8);
 #pragma unroll
-    for (int kk = 0; kk < kNB / 2; ++kk) {
+    for (int kk = 0; kk < NB / 2; ++kk) {
       const uint32_t a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
                              pack_bf16(p[2 * kk][2], p[2 * kk][3]),
                              pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
@@ -342,12 +354,13 @@ struct Mma<float, Dp> {
     ql = lo;
   }
 
-  __device__ __forceinline__ void scores(const T* ks, float (&s)[kNB][4]) const {
+  template <int NB>
+  __device__ __forceinline__ void scores(const T* ks, float (&s)[NB][4]) const {
     const int lane = threadIdx.x & 31;
     // b0 = k[key 8n + g][col 8kk + t4], b1 = col + 4
     const T* kb = ks + (lane >> 2) * L::kStride + (lane & 3);
 #pragma unroll
-    for (int n = 0; n < kNB; ++n)
+    for (int n = 0; n < NB; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
@@ -359,7 +372,7 @@ struct Mma<float, Dp> {
         al[e] = ql[(kk * 4 + e) * kThreads];
       }
 #pragma unroll
-      for (int n = 0; n < kNB; ++n) {
+      for (int n = 0; n < NB; ++n) {
         const T* kp = kb + n * 8 * L::kStride + kk * 8;
         uint32_t b0h, b0l, b1h, b1l;
         split_tf32(kp[0], b0h, b0l);
@@ -375,12 +388,13 @@ struct Mma<float, Dp> {
   // + 1 of each 8-key block: a0 = p[row g][key 2 t4] = s fragment element
   // 0, a1 = row g + 8 (element 2), a2 = key 2 t4 + 1 (element 1), a3 =
   // element 3; b0 = v[key 2 t4][col g], b1 = v[key 2 t4 + 1][col g].
-  __device__ __forceinline__ void pv(const T* vs, const float (&p)[kNB][4],
+  template <int NB>
+  __device__ __forceinline__ void pv(const T* vs, const float (&p)[NB][4],
                                      float (&o)[Dp / 8][4]) const {
     const int lane = threadIdx.x & 31;
     const T* vb = vs + 2 * (lane & 3) * L::kStride + (lane >> 2);
 #pragma unroll
-    for (int n = 0; n < kNB; ++n) {
+    for (int n = 0; n < NB; ++n) {
       uint32_t ah[4], al[4];
       split_tf32(p[n][0], ah[0], al[0]);
       split_tf32(p[n][2], ah[1], al[1]);
@@ -455,20 +469,22 @@ struct Softmax {
     l[0] = l[1] = 0.f;
   }
 
-  // Turn scores s into probabilities in place and rescale o and l.
-  __device__ __forceinline__ void fold(float (&s)[kNB][4], const TileMask& mask,
+  // Turn scores s (NB 8-key blocks) into probabilities in place and
+  // rescale o and l.
+  template <int NB>
+  __device__ __forceinline__ void fold(float (&s)[NB][4], const TileMask& mask,
                                        const RowPair& rp, float scale_log2) {
     const int t4 = threadIdx.x & 3;
     if (!mask.full) {
 #pragma unroll
-      for (int n = 0; n < kNB; ++n)
+      for (int n = 0; n < NB; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           if (!mask(rp.pos[e >> 1], 8 * n + 2 * t4 + (e & 1))) s[n][e] = kNegInf;
     }
     float mx[2][2] = {{kNegInf, kNegInf}, {kNegInf, kNegInf}};
 #pragma unroll
-    for (int n = 0; n < kNB; ++n)
+    for (int n = 0; n < NB; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         mx[e >> 1][n & 1] = fmaxf(mx[e >> 1][n & 1], s[n][e]);
@@ -485,7 +501,7 @@ struct Softmax {
     }
     float sum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
 #pragma unroll
-    for (int n = 0; n < kNB; ++n)
+    for (int n = 0; n < NB; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int h = e >> 1;
@@ -533,42 +549,65 @@ struct Softmax {
 // may land in that stage while tile t computes.  Each thread's source row
 // for the next tile (a block-table read, for pages) is computed a tile
 // ahead, so its latency hides behind the products.  Warps whose 16 rows
-// are all padding (``compute`` false) only copy.
-template <typename T, int Dp, typename Tiles>
+// are all padding (``compute`` false) only copy.  With KS > 1, KS warps
+// share one row tile: warp w takes keys (w % KS) * 64 / KS .. + 64 / KS of
+// every tile into its own softmax state, which the caller merges.
+// RowThreads loader threads share a key row (load_tile).
+template <typename T, int Dp, int KS = 1, int RowThreads = kRowThreads,
+          typename Tiles>
 __device__ __forceinline__ void key_loop(T* ring, const Tiles& tiles,
                                          const Mma<T, Dp>& mma, Softmax<Dp>& sm,
                                          const RowPair& rp, float scale_log2,
                                          int D, bool vec, bool compute) {
   using L = Layout<T, Dp>;
   constexpr int S = L::kStages;
+  constexpr int kRpt = kTileN * RowThreads / kThreads;  // rows per loader thread
   const int n_tiles = tiles.n;
-  const int j = threadIdx.x / kTpr;
-  const auto row_of = [&](int t) -> size_t {
-    return t < n_tiles && j < tiles.nk(t) ? tiles.row(t, j) : 0;
+  const auto rows_of = [&](int t, size_t (&rows)[kRpt]) {
+#pragma unroll
+    for (int p = 0; p < kRpt; ++p) {
+      const int j = threadIdx.x / RowThreads * kRpt + p;
+      rows[p] = t < n_tiles && j < tiles.nk(t) ? tiles.row(t, j) : 0;
+    }
   };
-  const auto issue = [&](int t, size_t row) {
+  const auto issue = [&](int t, const size_t (&rows)[kRpt]) {
     T* ks = ring + (t % S) * 2 * L::kTile;
-    load_tile<T, Dp>(ks, ks + L::kTile, tiles.k(t), tiles.v(t), row,
-                     tiles.nk(t), D, vec);
+    load_tile<T, Dp, RowThreads>(ks, ks + L::kTile, tiles.k(t), tiles.v(t),
+                                 rows, tiles.nk(t), D, vec);
   };
+  size_t next[kRpt];
 #pragma unroll
   for (int t = 0; t < S - 1; ++t) {
-    if (t < n_tiles) issue(t, row_of(t));
+    if (t < n_tiles) {
+      rows_of(t, next);
+      issue(t, next);
+    }
     cp_async_commit();
   }
-  size_t next = row_of(S - 1);
+  rows_of(S - 1, next);
   for (int t = 0; t < n_tiles; ++t) {
     cp_async_wait<S - 2>();
     __syncthreads();  // tile t is in; every warp is done with tile t - 1
     if (t + S - 1 < n_tiles) issue(t + S - 1, next);
     cp_async_commit();
-    next = row_of(t + S);
+    rows_of(t + S, next);
     if (compute) {
-      const T* ks = ring + (t % S) * 2 * L::kTile;
-      float s[kNB][4];
-      mma.scores(ks, s);
-      sm.fold(s, tiles.mask(t), rp, scale_log2);
-      mma.pv(ks + L::kTile, s, sm.o);
+      constexpr int kKeys = kTileN / KS;  // this warp's keys of the tile
+      const int off = KS == 1 ? 0 : (int)(threadIdx.x >> 5) % KS * kKeys;
+      TileMask mask = tiles.mask(t);
+      if constexpr (KS > 1) {
+        mask.j0 += off;
+        mask.nk -= off;
+        mask.full = mask.full ||
+                    (!mask.causal && mask.window <= 0 && mask.nk >= kKeys);
+      }
+      if (KS == 1 || mask.nk > 0) {
+        const T* ks = ring + (t % S) * 2 * L::kTile + off * L::kStride;
+        float s[kKeys / 8][4];
+        mma.scores(ks, s);
+        sm.fold(s, mask, rp, scale_log2);
+        mma.pv(ks + L::kTile, s, sm.o);
+      }
     }
   }
 }

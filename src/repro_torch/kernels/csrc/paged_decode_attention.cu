@@ -17,17 +17,26 @@
 // Bound on the H100: the bytes of live KV read, 2 * sum_b lengths[b] * KVH
 // * D * sizeof(element) (plus 2 * sum_b lengths[b] * KVH scales for the
 // int8 twin), over 3.35 TB/s; the arithmetic (4 flops per key per query
-// head and dimension) is far below the tensor-core line.  The design
-// therefore reads each live page once per KV head: one CTA per
-// (b, kv_head) holds the whole GQA group of H / KVH query rows, walks
-// block_table[b, :ceil(lengths[b] / bs)] itself and stops at the last
-// live key, so dead and sentinel pages cost no traffic.  The int8 twin
-// dequantizes each row as it lands in the f32 shared tile, so device
-// memory is read as int8 payload plus scales.
+// head and dimension) is far below the tensor-core line.  Each live page
+// is read once per KV head: the CTAs of a (b, kv_head) hold the whole GQA
+// group of H / KVH query rows, read block_table[b, :ceil(lengths[b] / bs)]
+// themselves and stop at the last live key, so dead and sentinel pages
+// cost no traffic.
+//
+// The float kernel is the split-KV tensor-core decode of decode_mma.cuh:
+// (splits, KVH, B) CTAs, 64-key tiles gathered from the pages by 16-byte
+// cp.async (each row's block-table read and page clamp a tile ahead), the
+// group's rows on mma.sync, and a merge kernel when the plan has more than
+// one split (kernels/common.py::decode_plan).  The int8 twin still runs
+// the CUDA-core body of paged_attention.cuh (one CTA per (b, kv_head),
+// 32-key tiles): it dequantizes each row as it lands in the f32 shared
+// tile, so device memory is read as int8 payload plus scales.
+#include "decode_mma.cuh"
 #include "paged_attention.cuh"
 
 namespace paged {
 
+// The int8 twin's body (CUDA cores, 32-key tiles; KV = Int8KV<T>).
 template <typename T, typename KV>
 __global__ void __launch_bounds__(kThreads)
     paged_decode_kernel(const T* __restrict__ q, KV kv,
@@ -80,28 +89,37 @@ inline bool valid_dims(int B, int H, int KVH, int D, int N, int bs, int nb) {
 
 }  // namespace paged
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16; splits, Dp, smem: the launch plan
+// (kernels/common.py::decode_plan); ws and tickets: its f32 workspace and
+// B * KVH zeroed int32 arrival counters when splits > 1, else NULL.
+// Returns a cudaError_t (0 = launched).
 extern "C" int paged_decode_attention(const void* q, const void* k_pages,
                                       const void* v_pages,
                                       const void* block_table,
-                                      const void* lengths, void* out, int B,
-                                      int H, int KVH, int D, int N, int bs,
-                                      int nb, int dtype, void* stream) {
-  using namespace paged;
-  if (!valid_dims(B, H, KVH, D, N, bs, nb)) return (int)cudaErrorInvalidValue;
+                                      const void* lengths, void* out,
+                                      void* ws, void* tickets, int B, int H,
+                                      int KVH, int D, int N, int bs, int nb,
+                                      int dtype, int splits, int Dp,
+                                      int smem, void* stream) {
+  using namespace mma_attn;
+  if (!paged::valid_dims(B, H, KVH, D, N, bs, nb))
+    return (int)cudaErrorInvalidValue;
   const int* bt = (const int*)block_table;
   const int* len = (const int*)lengths;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch<float>(
-        q, FloatKV<float>{(const float*)k_pages, (const float*)v_pages}, bt,
-        len, out, B, H, KVH, D, N, bs, nb, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(
+    return launch_decode<float>(
         q,
-        FloatKV<__nv_bfloat16>{(const __nv_bfloat16*)k_pages,
-                               (const __nv_bfloat16*)v_pages},
-        bt, len, out, B, H, KVH, D, N, bs, nb, st);
+        PagedSource<float>{(const float*)k_pages, (const float*)v_pages, bt,
+                           nb, bs, N, KVH},
+        len, out, ws, tickets, B, H, KVH, D, splits, Dp, smem, st);
+  if (dtype == 1)
+    return launch_decode<__nv_bfloat16>(
+        q,
+        PagedSource<__nv_bfloat16>{(const __nv_bfloat16*)k_pages,
+                                   (const __nv_bfloat16*)v_pages, bt, nb, bs,
+                                   N, KVH},
+        len, out, ws, tickets, B, H, KVH, D, splits, Dp, smem, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -17,10 +17,16 @@ Replaces the Pallas TPU kernels
 
 What bounds both on the H100 is the live KV they read,
 ``2 * sum(min(lengths, S)) * KVH * D`` elements (plus the scales) at
-3.35 TB/s: decode does 4 flops per element read.  One CTA per (sequence,
-KV head) holds the whole GQA group, reads each live row once and stops
-at the last one (the tail is masked, not padded to a tile multiple); the
-int8 twin dequantizes rows as they enter the f32 shared tile, so the
+3.35 TB/s: decode does 4 flops per element read.  The CTAs of a
+(sequence, KV head) hold the whole GQA group, read each live row once and
+stop at the last one (the tail is masked, not padded to a tile multiple).
+The float kernel is the split-KV tensor-core decode of
+``csrc/decode_mma.cuh``: several CTAs per (sequence, KV head) when S
+exceeds 256 (the plan, ``common.decode_plan``, reads shapes only), 64-key
+tiles by 16-byte ``cp.async``, the group's rows on ``mma.sync``, and the
+last CTA of each (sequence, KV head) to finish merging the partials from
+an f32 workspace.  The int8 twin keeps one CUDA-core CTA per (sequence,
+KV head) and dequantizes rows as they enter its f32 shared tile, so the
 device-memory read stays int8 plus scales.
 
 On CPU tensors the wrappers run ``decode_attention_plain`` /
@@ -33,7 +39,8 @@ import math
 
 import torch
 
-from repro_torch.kernels.common import check_cuda_inputs, launch, on_cpu
+from repro_torch.kernels.common import (check_cuda_inputs, decode_plan,
+                                       launch, on_cpu, split_tickets)
 
 # launches of the float and the int8 CUDA kernel in this process (the
 # plain versions do not count); reset by whoever reads them
@@ -109,9 +116,17 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_shapes("decode_attention", q, k, v, lengths)
     B, H, D = q.shape
     KVH, S = k.shape[1], k.shape[2]
+    plan = decode_plan(B, H, KVH, S, D, q.dtype)
     out = torch.empty_like(q)
+    ws = tickets = None
+    if plan.splits > 1:
+        ws = torch.empty(plan.workspace_floats, dtype=torch.float32,
+                         device=q.device)
+        tickets = split_tickets(q.device, B * KVH)
     launch("decode_attention", "decode_attention", q.device,
-           [q, k, v, lengths, out], [B, H, KVH, S, D, dtype])
+           [q, k, v, lengths, out, ws, tickets],
+           [B, H, KVH, S, D, dtype, plan.splits, plan.d_pad,
+            plan.smem_bytes])
     launches += 1
     return out
 

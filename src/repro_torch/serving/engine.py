@@ -28,16 +28,23 @@ changed is the compute:
     reference's single-shot prefill (``_prefill_one``: batch 1 at the
     exact prompt length, whose scan is the CUDA SSD kernel on a CUDA
     device), since its state carry has no chunked prefill;
-  * the cache is updated in place (the reference's buffer donation has no
-    counterpart to configure); COW page copies land before any dispatch
-    or snapshot;
+  * the cache is updated in place; COW page copies land before any
+    dispatch or snapshot;
   * the block table is uploaded only when ``BlockManager.table_version``
     moves, from a copy of the manager's table, which it mutates in place;
   * timed regions end in ``torch.cuda.synchronize`` on a CUDA device, so
     ``prefill_time`` / ``decode_time`` (and the RWT calibration built on
     them) measure compute, not launch;
   * ``steps(k)`` runs the burst as a host loop over device-side finish
-    flags with the reference's ``lax.while_loop`` rules;
+    flags with the reference's ``lax.while_loop`` rules and one host sync
+    per burst: the host caps the burst at the largest number of tokens any
+    slot may still emit, so only a burst cut short by EOS runs idle
+    iterations (every slot frozen, nothing emitted);
+  * ``pages_per_tile`` is forwarded to the model config's
+    ``paged_pages_per_tile`` as in the reference, and the CUDA kernels
+    ignore it: they tile by keys (64 a tile, from any pages), not by pages.
+    ``donate_buffers`` is accepted and has no effect: the cache is always
+    updated in place;
   * eviction snapshots keep the same dict, with ``"cache"`` holding CPU
     torch tensors of the evicted pages or slot (bfloat16 has no numpy
     dtype); a snapshot resumes only on an engine of its own layout.
@@ -80,12 +87,23 @@ class EngineConfig:
     device: str = "cuda"
     # Chunked prefill: max prompt tokens processed per slot per step().
     prefill_chunk_tokens: int = 128
+    # Chunk-length padding buckets; None => powers of two up to
+    # prefill_chunk_tokens.
+    prefill_buckets: Optional[Tuple[int, ...]] = None
     # "paged-cuda" (page pool) or "cuda" (dense per-slot cache); None
     # means "paged-cuda".
     attention_backend: Optional[str] = None
+    # The reference's KV pages per Pallas grid step, forwarded to the
+    # model config's paged_pages_per_tile; the CUDA kernels tile by keys
+    # (64 a tile, gathered from any pages) and do not read it.
+    pages_per_tile: Optional[int] = None
     # Fused multi-step decode: ``steps()`` runs up to this many decode
     # iterations per host round trip.  1 = the single-step ``step()`` loop.
     decode_burst: int = 1
+    # The reference donates the cache to its jitted calls so XLA updates
+    # it in place; PyTorch always updates it in place, so this has no
+    # effect.
+    donate_buffers: bool = True
     # Run repro_torch.analysis.invariants.check_engine at every
     # step()/steps() round boundary (also forced on by QLINT_INVARIANTS=1).
     debug_invariants: bool = False
@@ -109,8 +127,18 @@ class EngineConfig:
         return -(-self.max_seq_len // self.block_size)
 
     def resolved_buckets(self) -> Tuple[int, ...]:
-        """Chunk-length padding buckets: powers of two from 16, capped by
-        prefill_chunk_tokens."""
+        """Chunk-length padding buckets: the custom ones completed up to
+        prefill_chunk_tokens, else powers of two from 16 capped by it."""
+        if self.prefill_buckets:
+            buckets = sorted(self.prefill_buckets)
+            if self.prefill_chunk_tokens > 0 \
+                    and buckets[-1] < self.prefill_chunk_tokens:
+                # buckets must cover the largest possible chunk, else the
+                # padding falls back to exact lengths
+                buckets.append(self.prefill_chunk_tokens)
+            return tuple(buckets)
+        if self.prefill_chunk_tokens <= 0:
+            return ()
         buckets = []
         b = 16
         while b < self.prefill_chunk_tokens:
@@ -170,7 +198,7 @@ class ContinuousBatchingEngine:
         # sharing needs a physical page pool: inert on the dense layout
         self.prefix_sharing = bool(cfg.prefix_sharing) and self.paged
         self._check_layout(model)
-        self.model = model
+        self.model = self._with_tile(model)
         self.params = params
         self.model_name = model_name
         self.stats = EngineStats()
@@ -214,6 +242,16 @@ class ContinuousBatchingEngine:
                 f"paged attention backends support full attention only; "
                 f"{model.cfg.name} has a sliding window (serve it on "
                 f"attention_backend='cuda')")
+
+    def _with_tile(self, model: Model) -> Model:
+        """``model`` with ``cfg.pages_per_tile`` in its config's
+        ``paged_pages_per_tile``, as the reference forwards it."""
+        ppt = self.cfg.pages_per_tile
+        if ppt is None or model.cfg.paged_pages_per_tile == ppt:
+            return model
+        from repro_torch.models.model_factory import build_model
+        return build_model(dataclasses.replace(model.cfg,
+                                               paged_pages_per_tile=ppt))
 
     def _init_cache(self) -> Dict[str, torch.Tensor]:
         if self.paged:
@@ -360,6 +398,9 @@ class ContinuousBatchingEngine:
 
     def num_active(self) -> int:
         return len(self.active_slots())
+
+    def running_requests(self) -> List[Request]:
+        return [r for r in self.slots if r is not None]
 
     # ------------------------------------------------------------------
     # admission (request pulling LSO actuation point)
@@ -717,7 +758,7 @@ class ContinuousBatchingEngine:
             self._discard_snapshot(r)
         # earlier evictions stay valid: save their pinned pages first
         self._materialize_pinned_snapshots()
-        self.model = model
+        self.model = self._with_tile(model)
         self.params = params
         self.model_name = model_name
         self.cache = self._init_cache()
@@ -892,7 +933,10 @@ class ContinuousBatchingEngine:
         (each slot extended to ``lengths + min(n, rem) + 1`` tokens, capped
         at max_seq_len, plus one block per shared tail that must COW).
         Returns 0 when not even n=2 fits: the single-step round then owns
-        the pool-exhaustion endgame."""
+        the pool-exhaustion endgame.  The width is then capped at the
+        largest ``rem``: after that many iterations every slot has
+        exhausted ``max_new_tokens`` or ``max_seq_len``, so the burst needs
+        no device-side check for all slots finished."""
         rem, cur = {}, {}
         cow_extra = 0
         for i in active:
@@ -918,6 +962,7 @@ class ContinuousBatchingEngine:
             n -= 1
         if n <= 1:
             return 0
+        n = min(n, max(rem.values()))
         for i in active:
             tokens = min(int(self.lengths[i]) + min(n, rem[i]) + 1,
                          self.cfg.max_seq_len)
@@ -928,13 +973,15 @@ class ContinuousBatchingEngine:
     def _decode_burst(self, n: int, tokens: torch.Tensor,
                       lengths: torch.Tensor, remaining: torch.Tensor,
                       active: torch.Tensor) -> torch.Tensor:
-        """Up to ``n`` decode iterations with the argmax, length increments
-        and EOS / max-token / max-seq-len finish flags all on the device,
-        stopping early once every slot retired (the reference's
-        ``lax.while_loop``).  Returns the (decode_burst, max_slots) token
-        buffer, -1 where a slot was inactive.  Finished slots keep
-        rewriting their final token's k/v at their frozen position —
-        idempotent, and their pages are freed at the host sync."""
+        """``n`` decode iterations with the argmax, length increments and
+        EOS / max-token / max-seq-len finish flags all on the device, with
+        no host sync (the reference's ``lax.while_loop``, which also stops
+        once every slot retired: here ``_plan_burst`` caps ``n`` so that
+        only EOS can retire every slot early, and the iterations after it
+        emit nothing).  Returns the (decode_burst, max_slots) token buffer,
+        -1 where a slot was inactive.  Finished slots keep rewriting their
+        final token's k/v at their frozen position — idempotent, and their
+        pages are freed at the host sync."""
         K = max(int(self.cfg.decode_burst), 1)
         out = torch.full((K, self.cfg.max_slots), -1, dtype=torch.int32,
                          device=self.device)
@@ -952,8 +999,6 @@ class ContinuousBatchingEngine:
                 fin = fin | (produced == eos)
             tokens = produced
             active = active & ~fin
-            if i + 1 < n and not bool(active.any()):
-                break
         return out
 
     def _decode_burst_round(self, done: List[Request], k: int) -> None:

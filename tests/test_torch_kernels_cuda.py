@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import common
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_decode_attention as pda
@@ -232,6 +233,89 @@ def test_decode_kernels_match_plain(dev, dtype, quant, H, KVH, D, S):
     assert getattr(da, name) == before + 1
     torch.testing.assert_close(out.float(), plain(*args).float(), **TOL[dtype])
     assert torch.count_nonzero(out[2]) == 0
+
+
+# The split-KV float decode kernels over caps of 2048 keys a sequence
+# (splits > 1): lengths 0 and 1, the split edges at multiples of 256 (and
+# 1025, whose last split holds one key) +-1, the cap, above the cap; one
+# or many splits in one batch; GQA groups 1, 4, 8, 64 at head_dim 64, 80
+# and 128; in the page pool, sentinel ids (>= N, and -1) among the live
+# blocks, inside a split, which both versions clamp into the pool.
+SPLIT_CAP, SPLIT_BS = 2048, 16
+SPLIT_LENGTHS = [0, 1, 255, 256, 257, 511, 1023, 1024, 1025, 2047, 2048,
+                 2100]
+
+
+def _split_case(kind, rng, dtype, dev, H, KVH, D, lengths):
+    """(wrapper, plain version, args) of the float ``kind`` decode kernel
+    ("paged" or "dense") over SPLIT_CAP keys a sequence."""
+    B = len(lengths)
+    q = torch.tensor(rng.standard_normal((B, H, D)), dtype=dtype, device=dev)
+    ln = torch.tensor(np.asarray(lengths, np.int32), device=dev)
+    if kind == "dense":
+        k, v = (torch.tensor(rng.standard_normal((B, KVH, SPLIT_CAP, D)),
+                             dtype=dtype, device=dev) for _ in range(2))
+        return da.decode_attention, da.decode_attention_plain, (q, k, v, ln)
+    nb = SPLIT_CAP // SPLIT_BS
+    N = B * nb
+    kp, vp = _pool(rng, N, KVH, SPLIT_BS, D, dtype, dev)
+    bt = _table(rng, B, nb, N, [nb] * B, dev)
+    bt[1, 20] = N + 3                  # inside a split of a live sequence
+    bt[-2, 40:42] = -1
+    bt[-1, 127] = N
+    return (pda.paged_decode_attention, pda.paged_decode_attention_plain,
+            (q, kp, vp, bt, ln))
+
+
+@pytest.mark.parametrize("kind", ["paged", "dense"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", [1, 4, 8, 64])
+@pytest.mark.parametrize("D", [64, 80, 128])
+def test_split_decode_kernels_match_plain(dev, kind, dtype, G, D):
+    rng = np.random.default_rng(11)
+    KVH = 2
+    fn, plain, args = _split_case(kind, rng, dtype, dev, G * KVH, KVH, D,
+                                  SPLIT_LENGTHS)
+    plan = common.decode_plan(len(SPLIT_LENGTHS), G * KVH, KVH, SPLIT_CAP, D,
+                              dtype)
+    assert plan.splits >= 5                   # long sequences use several
+    mod = pda if kind == "paged" else da
+    before = mod.launches
+    out = fn(*args)
+    torch.cuda.synchronize()
+    assert mod.launches == before + 1         # one count, whatever splits
+    torch.testing.assert_close(out.float(), plain(*args).float(),
+                               **TOL[dtype])
+    assert torch.count_nonzero(out[0]) == 0   # no valid key -> 0
+    # every merging CTA reset its arrival counter
+    assert torch.count_nonzero(common.split_tickets(out.device, 1)) == 0
+
+
+@pytest.mark.parametrize("kind", ["paged", "dense"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_decode_replays_in_a_cuda_graph(dev, kind, dtype):
+    """The split count is fixed when the call is captured; each replay
+    reads the lengths then in the buffer (0, the cap, and in between)."""
+    rng = np.random.default_rng(12)
+    fn, plain, args = _split_case(kind, rng, dtype, dev, 32, 8, 64,
+                                  [SPLIT_CAP] * 4)
+    ln = args[-1]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*args)
+    for lengths in ([0, 0, 0, 0], [SPLIT_CAP] * 4, [1, 257, 1025, 5000],
+                    rng.integers(0, SPLIT_CAP + 1, size=4), [0, 2048, 0, 64]):
+        ln.copy_(torch.tensor(np.asarray(lengths, np.int32), device=dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), plain(*args).float(),
+                                   **TOL[dtype])
+        assert torch.count_nonzero(common.split_tickets(out.device, 1)) == 0
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
