@@ -3,9 +3,9 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --decode-timings [SRC]
 
-The second form times only the float decode kernels and the granite
-decode steps (``decode_timings``), with the package under SRC, so that a
-parent commit's kernels can be timed beside this one's in one call.
+The second form times only the decode kernels, float and int8, and the
+granite decode steps (``decode_timings``), with the package under SRC, so
+that a parent commit's kernels can be timed beside this one's in one call.
 
 Phases, in order; any failure exits non-zero before the result lines:
 
@@ -16,7 +16,9 @@ Phases, in order; any failure exits non-zero before the result lines:
      its kernels, and one with the count of tensor-core instructions
      (``HMMA``/``HGMMA``) in its SASS (``cuobjdump -sass``): the float
      paged prefill, flash and paged / dense decode kernels must hold
-     them, or the run fails;
+     them, or the run fails; every kernel of the two decode libraries must
+     be a split-KV ``decode_mma_kernel`` (int8 instances among them) with
+     tensor-core instructions and no spill bytes;
   3. kernel phase: the six serving kernels (paged decode, paged prefill,
      dense decode, each in float and int8-KV form) against their plain
      PyTorch versions on the card, in float32 and bfloat16, at granite-3-2b's
@@ -34,7 +36,9 @@ Phases, in order; any failure exits non-zero before the result lines:
      beside it) at the serving shapes (device time, from CUDA-graph
      replays), beside the bound, and each kernel once more at long context
      (the float decode kernels also beside SDPA over the gathered or
-     length-masked KV, with their split count; the float prefill also
+     length-masked KV, the int8 ones beside the two calls that gather,
+     dequantize and run SDPA, each with its split count; the float
+     prefill also
      beside SDPA over the gathered prefix plus the chunk, and at one chunk
      round of a single long prompt: B 1, 128 queries over a 4096-token
      prefix).
@@ -79,7 +83,8 @@ Phases, in order; any failure exits non-zero before the result lines:
      b-f must serve all 8 requests;
   5. full-width step times of each path, device time (CUDA-graph replay)
      against the eager call; granite's decode step also at 8 slots x 4096
-     tokens of context, page pool and dense; for mamba2 one decode step at
+     tokens of context, page pool and dense, float and int8; for mamba2 one
+     decode step at
      8 slots and one
      single-shot prefill of 64 and of 512 tokens, with the launch count
      of one prefill (one per layer) and of one decode step (none);
@@ -217,6 +222,8 @@ def read_launches() -> dict:
 # libraries whose float kernels must run their products on the tensor cores
 MMA_LIBRARIES = ("paged_prefill_attention", "flash_attention",
                  "paged_decode_attention", "decode_attention")
+# libraries whose every kernel, float and int8, is the split-KV decode core
+DECODE_LIBRARIES = ("paged_decode_attention", "decode_attention")
 
 
 def _short_names(mangled) -> dict:
@@ -238,7 +245,8 @@ def kernel_resources() -> None:
     """One line per library with ptxas's registers, spill bytes and static
     shared memory of each kernel; one with the HMMA/HGMMA count of each
     kernel's SASS.  Every tensor-core kernel of MMA_LIBRARIES must hold
-    tensor-core instructions."""
+    tensor-core instructions; every kernel of DECODE_LIBRARIES must be a
+    ``decode_mma_kernel``, int8 instances among them, with no spills."""
     from repro_torch.kernels import build
 
     for lib in build.SOURCES:
@@ -287,6 +295,13 @@ def kernel_resources() -> None:
             mma = {k: n for k, n in named.items() if "mma_kernel" in k}
             check(mma and all(mma.values()),
                   f"{lib}: a tensor-core kernel without HMMA/HGMMA: {named}")
+        if lib in DECODE_LIBRARIES:
+            spills = {short[k]: r["spill_bytes"] for k, r in res.items()}
+            check(all(k.startswith("decode_mma_kernel<") for k in named)
+                  and any("Int8Source" in k for k in named),
+                  f"{lib}: a decode kernel off the split-KV core, or no int8 "
+                  f"instance: {list(named)}")
+            check(not any(spills.values()), f"{lib}: spills {spills}")
 
 
 # ---------------------------------------------------------------------------
@@ -465,6 +480,7 @@ def prefill_library(args, dtype):
 
 
 FLOAT_DECODE = ("paged_decode_attention", "decode_attention")
+INT8_DECODE = ("paged_decode_attention_quant", "decode_attention_quant")
 
 
 def decode_library(name, args):
@@ -484,21 +500,53 @@ def decode_library(name, args):
         q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)
 
 
+def decode_two_calls(name, args):
+    """What stands in for an int8 decode kernel ``name`` without one
+    PyTorch call: gather the pages (paged) and dequantize, then SDPA over
+    the length-masked KV; timed as two calls, never as ``library_ms``."""
+    from repro_torch.kernels.paged_decode_attention import gather_pages
+
+    q, kq, vq, ks, vs = args[:5]
+    ln = args[-1]
+    paged = name == "paged_decode_attention_quant"
+    S = args[5].shape[1] * kq.shape[2] if paged else kq.shape[2]
+    mask = (torch.arange(S, device="cuda")[None, :]
+            < ln[:, None])[:, None, None]
+
+    def rows(x, scale):
+        if paged:
+            return gather_pages(x, args[5]), gather_pages(scale, args[5])
+        return x, scale
+
+    def run():
+        kv = [_dequant(*rows(x, c), q.dtype) for x, c in ((kq, ks), (vq, vs))]
+        return torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None], *kv, attn_mask=mask, enable_gqa=True)
+    return run
+
+
 def decode_splits(name, args):
-    """CTAs per (sequence, KV head) of the float decode kernel ``name`` on
-    ``args``, from its launch plan (None for a tree without one)."""
+    """CTAs per (sequence, KV head) of the decode kernel ``name`` on
+    ``args``, from its launch plan (None for a tree without one, or
+    without one for int8)."""
+    import inspect
+
     from repro_torch.kernels import common
 
-    if not hasattr(common, "decode_plan"):
+    quant = name in INT8_DECODE
+    if not hasattr(common, "decode_plan") or (
+            quant and "quant" not in
+            inspect.signature(common.decode_plan).parameters):
         return None
     q = args[0]
     B, H, D = q.shape
-    if name == "paged_decode_attention":
+    if name.startswith("paged"):
         KVH, bs = args[1].shape[1:3]
-        cap = args[3].shape[1] * bs
+        cap = args[-2].shape[1] * bs
     else:
         KVH, cap = args[1].shape[1:3]
-    return common.decode_plan(B, H, KVH, cap, D, q.dtype).splits
+    kw = {"quant": True} if quant else {}
+    return common.decode_plan(B, H, KVH, cap, D, q.dtype, **kw).splits
 
 
 def kernel_phase(shapes: dict):
@@ -594,12 +642,8 @@ def kernel_phase(shapes: dict):
                          dtype)
             log("  paged_decode_attention_quant: no single PyTorch call; "
                 "gather + dequantize, then SDPA: " + json.dumps({
-                    "two_call_ms": time_ms(lambda: sdpa(
-                        q4, _dequant(gather_pages(args[1], bt),
-                                     gather_pages(args[3], bt), dtype),
-                        _dequant(gather_pages(args[2], bt),
-                                 gather_pages(args[4], bt), dtype),
-                        attn_mask=mask, enable_gqa=True)),
+                    "two_call_ms": time_ms(decode_two_calls(
+                        "paged_decode_attention_quant", args)),
                     "sdpa_alone_ms": time_ms(lambda: sdpa(
                         q4, k, v, attn_mask=mask, enable_gqa=True))}))
             library = None
@@ -633,17 +677,12 @@ def kernel_phase(shapes: dict):
               4.0 * H * D * float(sum(v * (v + 1) / 2 for v in valid)),
               library, rows=valid.tolist())
 
-    dmask = (torch.arange(S1, device="cuda")[None, :]
-             < _ints(lengths)[:, None])[:, None, None]
     for quant in (False, True):
         args = dense_case(rng, gen, dtype, lengths.tolist(), S1, quant)
-        q4 = args[0][:, :, None]
         if quant:
             log("  decode_attention_quant: no single PyTorch call; "
                 "dequantize, then SDPA: " + json.dumps({"two_call_ms": time_ms(
-                    lambda: sdpa(q4, _dequant(args[1], args[3], dtype),
-                                 _dequant(args[2], args[4], dtype),
-                                 attn_mask=dmask, enable_gqa=True))}))
+                    decode_two_calls("decode_attention_quant", args))}))
             library = None
         else:
             library = decode_library("decode_attention", args)
@@ -666,7 +705,9 @@ def long_context(rng, gen, failures) -> None:
     (67 MB of bf16 KV, past the 50 MB L2; half that, plus scales, in int8),
     paged and dense, and a 128-token chunk over a 2048-token prefix for 4
     sequences; each checked against its plain version and timed beside its
-    bound, bf16.  The float prefill also beside its plain version and SDPA,
+    bound, bf16, the decode kernels with their split count and beside SDPA
+    (float) or the two calls that dequantize and run SDPA (int8).  The
+    float prefill also beside its plain version and SDPA,
     and at one chunk round of a single long prompt (B 1, 128 queries over
     a 4096-token prefix: 8 query tiles x 8 KV heads = 64 CTAs)."""
     dtype, esize, H, KVH, D = torch.bfloat16, 2, 32, 8, 64
@@ -712,6 +753,9 @@ def long_context(rng, gen, failures) -> None:
                 rec["library_ms"] = time_ms(prefill_library(args, dtype))
             if name in FLOAT_DECODE:
                 rec["library_ms"] = time_ms(decode_library(name, args))
+            if name in INT8_DECODE:
+                rec["two_call_ms"] = time_ms(decode_two_calls(name, args))
+            if name in FLOAT_DECODE + INT8_DECODE:
                 rec["splits"] = decode_splits(name, args)
             log(f"  long context {name}{label}: " + json.dumps(rec))
 
@@ -1050,12 +1094,15 @@ def step_timings(registry) -> None:
         torch.cuda.empty_cache()
 
 
-def long_step_timings(model, params) -> None:
+def long_step_timings(model, quant, params) -> None:
     """Informational: one full-width decode step at 8 slots x 4096 tokens
     of context (each slot attends 4096 keys), on the page pool and on the
-    dense cache, device time from CUDA-graph replays against the eager
-    call.  The caches (2.7 GB each in bf16) are filled with random values
-    directly, so no 4096-token prefill runs."""
+    dense cache, in float (``model``) and int8 KV (``quant``, the same
+    weights), device time from CUDA-graph replays against the eager call.
+    The caches (2.7 GB each in bf16, about half that in int8) are filled
+    with random values directly, so no 4096-token prefill runs: float
+    leaves from a normal, int8 leaves uniform in [-127, 127], their scales
+    uniform in [1e-3, 0.05]."""
     B, L, bs = 8, 4096, 16
     nb = L // bs
     gen = torch.Generator(device="cuda")
@@ -1063,23 +1110,29 @@ def long_step_timings(model, params) -> None:
     tokens = torch.arange(B, dtype=torch.int32, device="cuda")
     lengths = torch.full((B,), L - 1, dtype=torch.int32, device="cuda")
     bt = torch.arange(B * nb, dtype=torch.int32, device="cuda").reshape(B, nb)
-    for label, make, step in (
-            ("page pool", lambda: model.init_paged_cache(
-                B * nb, bs, torch.bfloat16, "cuda"),
-             lambda c: model.decode_step_paged(params, c, tokens, lengths,
+    for label, m in (("", model), (" int8", quant)):
+        for layout, make, step in (
+                ("page pool", lambda: m.init_paged_cache(
+                    B * nb, bs, torch.bfloat16, "cuda"),
+                 lambda c: m.decode_step_paged(params, c, tokens, lengths,
                                                bt)),
-            ("dense", lambda: model.init_cache(B, L, torch.bfloat16, "cuda"),
-             lambda c: model.decode_step(params, c, tokens, lengths))):
-        cache = make()
-        for leaf in cache.values():
-            leaf.normal_(generator=gen)
-        device = time_ms(lambda: step(cache), iters=3, replays=3)
-        eager = eager_ms(lambda: step(cache), iters=5)
-        log(f"  granite {label} decode step, 8 slots x {L} tokens of "
-            f"context: device {device:.3f} ms, eager {eager:.3f} ms, host "
-            f"share {1 - device / eager:.3f}")
-        del cache
-        torch.cuda.empty_cache()
+                ("dense", lambda: m.init_cache(B, L, torch.bfloat16, "cuda"),
+                 lambda c: m.decode_step(params, c, tokens, lengths))):
+            cache = make()
+            for name, leaf in cache.items():
+                if leaf.dtype == torch.int8:
+                    leaf.random_(-127, 128, generator=gen)
+                elif name.endswith("_scale"):
+                    leaf.uniform_(1e-3, 0.05, generator=gen)
+                else:
+                    leaf.normal_(generator=gen)
+            device = time_ms(lambda: step(cache), iters=3, replays=3)
+            eager = eager_ms(lambda: step(cache), iters=5)
+            log(f"  granite {layout}{label} decode step, 8 slots x {L} "
+                f"tokens of context: device {device:.3f} ms, eager "
+                f"{eager:.3f} ms, host share {1 - device / eager:.3f}")
+            del cache
+            torch.cuda.empty_cache()
 
 
 def ssm_step_timings(model, params) -> None:
@@ -1409,15 +1462,16 @@ def training_reference_phase() -> None:
 
 
 def decode_timings(src: Path) -> int:
-    """``--decode-timings [SRC]``: only the float decode kernels and the
-    granite decode steps, with the ``repro_torch`` package under ``SRC``
-    (default: this checkout's ``src``), so that another tree's kernels
-    (a ``git archive`` of a parent commit) are timed by the same code in
-    the same call.  Each kernel against its plain version, then its device
-    time and SDPA's at the serving shape and at 8 x 4096 (bf16), then the
-    full-width granite decode step at 40 and at 4096 tokens of context, on
-    the page pool and the dense cache.  The last line is the records'
-    JSON."""
+    """``--decode-timings [SRC]``: only the decode kernels, float and
+    int8, and the granite decode steps, with the ``repro_torch`` package
+    under ``SRC`` (default: this checkout's ``src``), so that another
+    tree's kernels (a ``git archive`` of a parent commit) are timed by the
+    same code in the same call.  Each kernel against its plain version,
+    then its device time and SDPA's (float) or the dequantize-then-SDPA
+    two calls' (int8) at the serving shape and at 8 x 4096 (bf16), then
+    the full-width granite decode step, float and int8, at 40 and at 4096
+    tokens of context, on the page pool and the dense cache.  The last
+    line is the records' JSON."""
     sys.path.insert(0, str(src.resolve()))
     from repro_torch.configs import get_arch
     from repro_torch.kernels import build
@@ -1434,27 +1488,34 @@ def decode_timings(src: Path) -> int:
     for label, lengths, nb, S in (
             ("serving", serve_lengths, shapes["nb"], shapes["S1"]),
             ("8 x 4096", [4096] * 8, 256, 4096)):
-        for name in FLOAT_DECODE:
-            args = (decode_case(rng, gen, dtype, lengths, nb=nb,
+        for name in FLOAT_DECODE + INT8_DECODE:
+            quant = name in INT8_DECODE
+            args = (decode_case(rng, gen, dtype, lengths, quant, nb=nb,
                                 N=max(len(lengths) * nb, shapes["N"]))
-                    if name == "paged_decode_attention"
-                    else dense_case(rng, gen, dtype, lengths, S))
+                    if name.startswith("paged")
+                    else dense_case(rng, gen, dtype, lengths, S, quant))
             err = check_case(failures, name, dtype, label, args)
             fn, _ = kernel_fns(name)
-            records[f"{name} {label}"] = {
-                "ms": time_ms(lambda: fn(*args)),
-                "library_ms": time_ms(decode_library(name, args)),
-                "splits": decode_splits(name, args), "max_abs_err": err}
-            log(f"  {name} {label}: " + json.dumps(records[f"{name} {label}"]))
+            rec = {"ms": time_ms(lambda: fn(*args))}
+            if quant:
+                rec["two_call_ms"] = time_ms(decode_two_calls(name, args))
+            else:
+                rec["library_ms"] = time_ms(decode_library(name, args))
+            rec.update(splits=decode_splits(name, args), max_abs_err=err)
+            records[f"{name} {label}"] = rec
+            log(f"  {name} {label}: " + json.dumps(rec))
     check(not failures, f"kernels disagree with their plain versions: "
                         f"{failures}")
     cfg = get_arch(GRANITE)
     gen.manual_seed(0)
     model = build_model(cfg)
+    quant = build_model(dataclasses.replace(cfg, kv_quant=True))
     params = model.init(gen, torch.bfloat16, "cuda")
     step_timings((("granite paged", (model, params), True),
-                  ("granite dense", (model, params), False)))
-    long_step_timings(model, params)
+                  ("granite paged int8", (quant, params), True),
+                  ("granite dense", (model, params), False),
+                  ("granite dense int8", (quant, params), False)))
+    long_step_timings(model, quant, params)
     print(json.dumps(records), flush=True)
     return 0
 
@@ -1557,7 +1618,7 @@ def main() -> int:
         ("granite dense", (g_model, g_params), False),
         ("granite dense int8", (g_quant, g_params), False),
         ("h2o-danube dense", (d_model, d_params), False)))
-    long_step_timings(g_model, g_params)
+    long_step_timings(g_model, g_quant, g_params)
     ssm_step_timings(m_model, m_params)
     log(f"[step] in {time.monotonic() - t0:.1f} s")
 

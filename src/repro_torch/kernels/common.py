@@ -20,6 +20,9 @@ MMA_ROWS = 64
 MMA_TILE_KEYS = 64
 MMA_STAGES = {torch.float32: 2, torch.bfloat16: 3}
 MMA_D_PADS = (16, 32, 64, 80, 96, 128)
+# int8 KV (csrc/mma_attention.cuh, Int8Layout): stages of int8 rows and
+# their scales, converted into one tile pair of the compute dtype
+INT8_STAGES = 3
 
 # The split-KV decode kernels (csrc/decode_mma.cuh) on the same core: one
 # CTA per (split, KV head, sequence).  The split count fills at most
@@ -63,6 +66,20 @@ def _ring_bytes(d_pad: int, dtype: torch.dtype) -> int:
     return smem
 
 
+def _int8_ring_bytes(d_pad: int, dtype: torch.dtype) -> int:
+    """Shared bytes of the int8 decode kernels: one converted (K, V) tile
+    pair in ``dtype`` (rows of ``d_pad`` elements plus 16 bytes), the int8
+    stages (K and V rows of ``d_pad`` bytes, then one scale in ``dtype``
+    per key for each), and in f32 each thread's q split for 3xTF32."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    conv = 2 * MMA_TILE_KEYS * (d_pad * esize + 16)
+    stage = 2 * MMA_TILE_KEYS * d_pad + 2 * MMA_TILE_KEYS * esize
+    smem = conv + INT8_STAGES * stage
+    if dtype == torch.float32:
+        smem += 2 * MMA_THREADS * (d_pad // 2) * 4
+    return smem
+
+
 def attention_plan(B: int, H: int, KVH: int, L: int, D: int,
                    dtype: torch.dtype) -> AttentionPlan:
     """The plan for ``L`` query positions of ``H`` heads on ``KVH`` KV
@@ -83,36 +100,38 @@ def attention_plan(B: int, H: int, KVH: int, L: int, D: int,
 
 @dataclass(frozen=True)
 class DecodePlan:
-    """Launch plan of a split-KV decode kernel (float paged and dense
-    decode): ``splits`` CTAs per (sequence, KV head), each over its share
+    """Launch plan of a split-KV decode kernel (paged and dense decode,
+    float or int8 KV): ``splits`` CTAs per (sequence, KV head), each over its share
     of the sequence's keys (``split_range``), their rows the GQA group
     padded to 16-row tiles (at ``group <= 16`` the four warps share one
     row tile and take interleaved 16-key slices of each 64-key tile; the
-    kernel chooses that from the group itself).  With more than one split, the CTAs write f32 partials (O, m, l) to a workspace
+    kernel chooses that from the group itself).  With more than one split,
+    the CTAs write f32 partials (O, m, l) to a workspace
     of ``workspace_floats`` and the last to arrive of each (sequence, KV
     head) merges them, counted on ``split_tickets``."""
     group: int                  # query heads per KV head
     d_pad: int                  # head_dim padded to an instantiated width
     splits: int                 # CTAs per (sequence, KV head)
     grid: Tuple[int, int, int]  # (splits, KV heads, sequences)
-    smem_bytes: int             # the K/V ring (+ q's TF32 parts in f32)
+    smem_bytes: int             # the float or int8 ring (+ q's TF32 parts)
     workspace_floats: int       # 0 when splits == 1
 
 
 def decode_plan(B: int, H: int, KVH: int, cap: int, D: int,
-                dtype: torch.dtype) -> DecodePlan:
+                dtype: torch.dtype, quant: bool = False) -> DecodePlan:
     """The plan for one query token of ``H`` heads on ``KVH`` KV heads per
     sequence, over at most ``cap`` keys a sequence (``nb * bs`` pages or
-    ``S`` rows).  It reads shapes only, never the lengths: the split count
-    of a call is known on the host before the call and the same for every
-    replay of a captured graph."""
+    ``S`` rows), q in ``dtype`` and the KV in ``dtype`` or, with
+    ``quant``, int8 with scales in ``dtype``.  It reads shapes only, never
+    the lengths: the split count of a call is known on the host before the
+    call and the same for every replay of a captured graph."""
     if not (B >= 1 and KVH >= 1 and H % KVH == 0 and H // KVH <= MMA_ROWS
             and cap >= 1 and 1 <= D <= MMA_D_PADS[-1]):
         raise ValueError(f"no decode plan for B={B} H={H} KVH={KVH} "
                          f"cap={cap} D={D}")
     group = H // KVH
     d_pad = next(p for p in MMA_D_PADS if p >= D)
-    smem = _ring_bytes(d_pad, dtype)
+    smem = (_int8_ring_bytes if quant else _ring_bytes)(d_pad, dtype)
     per_sm = min(SPLIT_CTAS_PER_SM, SMEM_PER_SM // (smem + 1024))
     splits = max(1, min(H100_SMS * per_sm // (B * KVH),
                         _cdiv(cap, SPLIT_MIN_KEYS), SPLIT_MAX))
@@ -144,6 +163,16 @@ def split_tickets(device: torch.device, n: int) -> torch.Tensor:
         held.append(torch.zeros(max(n, 1 << 16), dtype=torch.int32,
                                 device=device))
     return held[-1]
+
+
+def split_buffers(plan: DecodePlan, device: torch.device, n: int
+                  ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """The f32 workspace of a split-KV ``plan`` (``torch.empty``) and ``n``
+    of its arrival tickets on ``device``; (None, None) for one split."""
+    if plan.splits == 1:
+        return None, None
+    return (torch.empty(plan.workspace_floats, dtype=torch.float32,
+                        device=device), split_tickets(device, n))
 
 
 def split_range(length: int, cap: int, splits: int,

@@ -2,8 +2,10 @@
 // (sm_90a): one query token per sequence and query head attends the first
 // lengths[b] keys of its sequence, read from the KV page pool (paged
 // decode) or from the sequence's own slot of a dense cache (dense decode).
-// The float entries of paged_decode_attention.cu and decode_attention.cu
-// launch it; their int8 twins keep paged_attention.cuh's CUDA-core body.
+// The float and int8 entries of paged_decode_attention.cu and
+// decode_attention.cu launch it: the int8 sources (PagedInt8Source,
+// DenseInt8Source) bring int8 rows and their scales through
+// mma_attention.cuh's int8_key_loop, the float ones through key_loop.
 //
 // Decode does 4 flops per key, query head and dimension, far below the
 // H100's ridge of about 295 flops a byte, so the bound is the bytes of
@@ -44,8 +46,15 @@
 //   * Loads.  Keys and values come in 64-key tiles by 16-byte cp.async
 //     into mma_attention.cuh's ring (three stages in bf16, two in f32),
 //     through its key_loop, eight threads to a key row so that each warp
-//     instruction reads four whole 128-byte rows; each loader thread
-//     computes its four rows' addresses for the next tile (the block-table
+//     instruction reads four whole 128-byte rows.  int8 rows come the
+//     same way into an int8 ring of three stages (Int8Layout: a D-64 row
+//     is four 16-byte pieces, four threads a row, so a warp instruction
+//     reads 512 consecutive bytes), with their scales in 16-, 8- or
+//     4-byte pieces where the alignment allows (16 at 16-token pages), and
+//     each warp converts them, exactly and unscaled, into one bf16 (f32)
+//     tile pair; the scales multiply the scores and the probabilities in
+//     f32 (mma_attention.cuh, RowScales).  Each loader thread
+//     computes its rows' addresses for the next tile (the block-table
 //     reads and the page clamp for pages; a shift, not a division, for
 //     power-of-two pages) a tile ahead.  Sentinel page ids (>= N, or < 0)
 //     are clamped into the pool before any address is formed.  The launch
@@ -114,6 +123,14 @@ struct PagedSource {
   const int* bt;  // (B, nb)
   int nb, bs, N, KVH;
 
+  static constexpr bool kInt8 = false;
+  template <int Dp>
+  using Ring = Layout<T, Dp>;
+  // the loader's copy mode: 16-byte pieces when every row is aligned
+  int vec(int D) const {
+    const void* rows[] = {k, v};
+    return rows_aligned(D, sizeof(T), rows, 2);
+  }
   __host__ __device__ __forceinline__ int cap() const { return nb * bs; }
   __device__ __forceinline__ PagedDecodeTiles<T> tiles(int b, int kvh, int lo,
                                                        int hi) const {
@@ -149,11 +166,84 @@ struct DenseSource {
   const T* v;
   int S, KVH;
 
+  static constexpr bool kInt8 = false;
+  template <int Dp>
+  using Ring = Layout<T, Dp>;
+  int vec(int D) const {
+    const void* rows[] = {k, v};
+    return rows_aligned(D, sizeof(T), rows, 2);
+  }
   __host__ __device__ __forceinline__ int cap() const { return S; }
   __device__ __forceinline__ DenseDecodeTiles<T> tiles(int b, int kvh, int lo,
                                                        int hi) const {
     return {k, v, ((size_t)b * KVH + kvh) * S, (hi - lo + kTileN - 1) / kTileN,
             lo, hi};
+  }
+};
+
+// int8 rows with one scale per row in q's type T (the int8 twins): the
+// rows of Rows (int8 pages or dense slots) and, at the same row index,
+// their k and v scales.
+template <typename Rows, typename T>
+struct Int8Tiles : Rows {
+  const T* ks;
+  const T* vs;
+};
+
+// The int8 loader's copy modes for the kernel's ``vec``: bit 0, the rows
+// go by 16-byte cp.async (D % 16 == 0, aligned bases); the bits above,
+// the bytes of each scale copy: the largest of 16, 8 and 4 whose keys
+// never straddle a page or slot (``run`` keys: bs, or S) and whose
+// addresses are aligned, else 0 (key by key through registers).
+template <typename T>
+int int8_vec(int D, const void* k, const void* v, const T* ks, const T* vs,
+             int run) {
+  const void* rows[] = {k, v};
+  int piece = 0;
+  for (int bytes = 16; bytes >= 4 && bytes >= (int)sizeof(T); bytes /= 2)
+    if (run % (bytes / (int)sizeof(T)) == 0 && (uintptr_t)ks % bytes == 0 &&
+        (uintptr_t)vs % bytes == 0) {
+      piece = bytes;
+      break;
+    }
+  return rows_aligned(D, 1, rows, 2) | piece << 1;
+}
+
+template <typename T>
+struct PagedInt8Source {
+  PagedSource<int8_t> rows;  // int8 pages (N, KVH, bs, D) and the table
+  const T* k_scale;          // (N, KVH, bs)
+  const T* v_scale;
+
+  static constexpr bool kInt8 = true;
+  template <int Dp>
+  using Ring = Int8Layout<T, Dp>;
+  int vec(int D) const {
+    return int8_vec(D, rows.k, rows.v, k_scale, v_scale, rows.bs);
+  }
+  __host__ __device__ __forceinline__ int cap() const { return rows.cap(); }
+  __device__ __forceinline__ Int8Tiles<PagedDecodeTiles<int8_t>, T> tiles(
+      int b, int kvh, int lo, int hi) const {
+    return {rows.tiles(b, kvh, lo, hi), k_scale, v_scale};
+  }
+};
+
+template <typename T>
+struct DenseInt8Source {
+  DenseSource<int8_t> rows;  // int8 (B, KVH, S, D)
+  const T* k_scale;          // (B, KVH, S)
+  const T* v_scale;
+
+  static constexpr bool kInt8 = true;
+  template <int Dp>
+  using Ring = Int8Layout<T, Dp>;
+  int vec(int D) const {
+    return int8_vec(D, rows.k, rows.v, k_scale, v_scale, rows.S);
+  }
+  __host__ __device__ __forceinline__ int cap() const { return rows.cap(); }
+  __device__ __forceinline__ Int8Tiles<DenseDecodeTiles<int8_t>, T> tiles(
+      int b, int kvh, int lo, int hi) const {
+    return {rows.tiles(b, kvh, lo, hi), k_scale, v_scale};
   }
 };
 
@@ -226,23 +316,26 @@ __device__ __forceinline__ void merge_splits(const Partials& part, size_t part0,
   }
 }
 
-// CTAs an SM holds by shared memory (1 KB of it reserved per CTA), at most
-// the three the plan fills (common.py SPLIT_CTAS_PER_SM); the launch bounds
-// keep registers from lowering that (170 a thread at three CTAs).
-template <typename T, int Dp>
+// CTAs an SM holds by the shared memory of Src's layout (1 KB of it
+// reserved per CTA), at most the three the plan fills (common.py
+// SPLIT_CTAS_PER_SM); the launch bounds keep registers from lowering that
+// (170 a thread at three).
+template <typename Src, int Dp>
 constexpr int decode_blocks_per_sm() {
-  return (int)(232448 / (Layout<T, Dp>::kSmem + 1024)) < 3
-             ? (int)(232448 / (Layout<T, Dp>::kSmem + 1024))
+  using L = typename Src::template Ring<Dp>;
+  return (int)(232448 / (L::kSmem + 1024)) < 3
+             ? (int)(232448 / (L::kSmem + 1024))
              : 3;
 }
 
+// ``vec``: Src::vec's copy mode.
 template <typename T, int Dp, int KS, typename Src>
-__global__ void __launch_bounds__(kThreads, (decode_blocks_per_sm<T, Dp>()))
+__global__ void __launch_bounds__(kThreads, (decode_blocks_per_sm<Src, Dp>()))
     decode_mma_kernel(const T* __restrict__ q, Src src,
                       const int* __restrict__ lengths, T* __restrict__ out,
                       float* __restrict__ ws, int* __restrict__ tickets, int B,
                       int H, int KVH, int D, int splits, int vec) {
-  using L = Layout<T, Dp>;
+  using L = typename Src::template Ring<Dp>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int x = blockIdx.x;
   const int kvh = blockIdx.y;
@@ -269,9 +362,13 @@ __global__ void __launch_bounds__(kThreads, (decode_blocks_per_sm<T, Dp>()))
   Softmax<Dp> sm;
   const RowPair rp(0, 0, 1, 0, 0);  // decode masks by key count only
   const float scale_log2 = kLog2e / sqrtf((float)D);
-  key_loop<T, Dp, KS, kDecodeRowThreads>(reinterpret_cast<T*>(smem_raw),
-                                         src.tiles(b, kvh, lo, hi), mma, sm, rp,
-                                         scale_log2, D, vec != 0, compute);
+  if constexpr (Src::kInt8)
+    int8_key_loop<T, Dp, KS>(smem_raw, src.tiles(b, kvh, lo, hi), mma, sm, rp,
+                             scale_log2, D, (vec & 1) != 0, vec >> 1, compute);
+  else
+    key_loop<T, Dp, KS, kDecodeRowThreads>(reinterpret_cast<T*>(smem_raw),
+                                           src.tiles(b, kvh, lo, hi), mma, sm,
+                                           rp, scale_log2, D, vec != 0, compute);
 
   // stage each warp's (m, l, O) in the ring, then fold the warps that share
   // a row tile into the output (one split) or this split's partial
@@ -358,23 +455,26 @@ int run_decode(const T* q, const Src& src, const int* lengths, T* out,
 }
 
 // Launch the decode kernel with the wrapper's plan (splits, Dp, smem
-// bytes).  A plan this file does not instantiate, whose bytes differ from
-// the ring's, or whose workspace and tickets are missing (splits > 1) or
-// extra (splits == 1) is refused.
+// bytes).  Heads the kernel does not take, a plan this file does not
+// instantiate, whose bytes differ from the source's layout (the float or
+// the int8 ring), or whose workspace and tickets are missing (splits > 1)
+// or extra (splits == 1) is refused.
 template <typename T, typename Src>
 int launch_decode(const void* q, const Src& src, const int* lengths, void* out,
                   void* ws, void* tickets, int B, int H, int KVH, int D,
                   int splits, int Dp, int smem, cudaStream_t stream) {
+  if (B < 1 || H < 1 || KVH < 1 || H % KVH != 0)
+    return (int)cudaErrorInvalidValue;
   const int G = H / KVH;
   if (G > kRows || splits < 1 || splits > kSplitMax ||
       (splits > 1) != (ws != nullptr) || (splits > 1) != (tickets != nullptr) ||
       !valid_d_pad(D, Dp))
     return (int)cudaErrorInvalidValue;
-  const void* rows[] = {src.k, src.v};
-  const int vec = rows_aligned(D, sizeof(T), rows, 2);
+  const int vec = src.vec(D);
   return with_d_pad(Dp, [&](auto dp) {
     constexpr int kDp = decltype(dp)::value;
-    if ((size_t)smem != Layout<T, kDp>::kSmem) return (int)cudaErrorInvalidValue;
+    if ((size_t)smem != Src::template Ring<kDp>::kSmem)
+      return (int)cudaErrorInvalidValue;
     return G <= 16 ? run_decode<T, kDp, 4>((const T*)q, src, lengths, (T*)out,
                                            (float*)ws, (int*)tickets, B, H, KVH,
                                            D, splits, smem, vec, stream)

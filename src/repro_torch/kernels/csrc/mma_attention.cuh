@@ -93,6 +93,27 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                : "memory");
 }
 
+// cp.async of ``bytes`` (4, 8 or 16; dst and src aligned to it), of which
+// the first ``src_bytes`` are read and the rest zero-filled
+__device__ __forceinline__ void cp_async_zfill(void* dst, const void* src,
+                                               int bytes, int src_bytes) {
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src), "r"(src_bytes)
+                 : "memory");
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src), "r"(src_bytes)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src), "r"(src_bytes)
+                 : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -540,6 +561,51 @@ struct Softmax {
   }
 };
 
+// The first key of this warp's slice of a tile: with KS > 1, KS warps
+// share a row tile and warp w takes keys (w % KS) * 64 / KS .. + 64 / KS.
+template <int KS>
+__device__ __forceinline__ int slice_offset() {
+  return KS == 1 ? 0 : (int)(threadIdx.x >> 5) % KS * (kTileN / KS);
+}
+
+// Per-key scale hooks of attend_slice.  The float sources' rows are the
+// values themselves, so they scale nothing.
+struct NoScales {
+  template <int NB>
+  __device__ __forceinline__ void keys(float (&)[NB][4]) const {}
+  template <int NB>
+  __device__ __forceinline__ void values(float (&)[NB][4]) const {}
+};
+
+// One warp's keys of a tile (all 64, or the slice at ``off`` when KS warps
+// share a row tile), with ks / vs at the slice's first K and V rows:
+// S = Q K^T, the hook's scale of each key's scores, the online softmax
+// (which sums P into l), the hook's scale of each key's probabilities,
+// O += P V.
+template <typename T, int Dp, int KS, typename Scales>
+__device__ __forceinline__ void attend_slice(const T* ks, const T* vs,
+                                             TileMask mask, int off,
+                                             const Mma<T, Dp>& mma,
+                                             Softmax<Dp>& sm, const RowPair& rp,
+                                             float scale_log2,
+                                             const Scales& scales) {
+  constexpr int kKeys = kTileN / KS;  // this warp's keys of the tile
+  if constexpr (KS > 1) {
+    mask.j0 += off;
+    mask.nk -= off;
+    mask.full = mask.full ||
+                (!mask.causal && mask.window <= 0 && mask.nk >= kKeys);
+  }
+  if (KS == 1 || mask.nk > 0) {
+    float s[kKeys / 8][4];
+    mma.scores(ks, s);
+    scales.keys(s);
+    sm.fold(s, mask, rp, scale_log2);
+    scales.values(s);
+    mma.pv(vs, s, sm.o);
+  }
+}
+
 // The key loop of one CTA over the tiles of ``tiles``: tiles.n tiles;
 // tile t holds tiles.nk(t) keys at rows tiles.row(t, j) of tiles.k(t) /
 // tiles.v(t), and tiles.mask(t) says which of them each row sees.  A ring
@@ -592,22 +658,299 @@ __device__ __forceinline__ void key_loop(T* ring, const Tiles& tiles,
     cp_async_commit();
     rows_of(t + S, next);
     if (compute) {
-      constexpr int kKeys = kTileN / KS;  // this warp's keys of the tile
-      const int off = KS == 1 ? 0 : (int)(threadIdx.x >> 5) % KS * kKeys;
-      TileMask mask = tiles.mask(t);
-      if constexpr (KS > 1) {
-        mask.j0 += off;
-        mask.nk -= off;
-        mask.full = mask.full ||
-                    (!mask.causal && mask.window <= 0 && mask.nk >= kKeys);
+      const int off = slice_offset<KS>();
+      const T* ks = ring + (t % S) * 2 * L::kTile + off * L::kStride;
+      attend_slice<T, Dp, KS>(ks, ks + L::kTile, tiles.mask(t), off, mma, sm,
+                              rp, scale_log2, NoScales{});
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// int8 rows with one scale per row (the int8 KV caches)
+// ---------------------------------------------------------------------------
+//
+// A row is f32(x) * f32(scale): x int8, the scale in the compute type T.
+// Every int8 value is exact in bf16 (8 significant bits) and in TF32, so
+// the rows enter the products unscaled, converted without rounding, and
+// the scales enter in f32 through attend_slice's hooks (RowScales): each
+// key's k-scale multiplies its scores, s_j = ks_j (q . x_j), and each
+// key's v-scale its probabilities once the softmax has summed them into
+// l, so O = sum_j (p_j vs_j) x_j.  In bf16 the P.V product rounds p_j vs_j
+// to bf16 where the float path rounds p_j: the same relative rounding.
+
+// Three stages, as the bf16 float ring.  Two or four moved no int8
+// decode time on the H100; two would fit three CTAs an SM at D 128 too,
+// but their launch bounds (170 registers) made the instances of groups
+// over 16 rows at D 80 and 128 spill.
+constexpr int kStagesInt8 = 3;
+
+// Shared layout of the int8 key loop: one converted (K, V) tile pair in
+// Layout<T, Dp>'s padded rows (the products' operands), kStagesInt8
+// stages of int8 K and V rows (Dp bytes each, unpadded: they are read in
+// whole 16-byte pieces) each followed by the tile's kTileN K and kTileN V
+// scales, then (f32) q's TF32 parts.
+template <typename T, int Dp>
+struct Int8Layout {
+  using F = Layout<T, Dp>;
+  static constexpr size_t kConv = sizeof(T) * 2 * F::kTile;
+  static constexpr size_t kRows = (size_t)kTileN * Dp;  // one int8 K or V tile
+  static constexpr size_t kStage = 2 * kRows + 2 * kTileN * sizeof(T);
+  static constexpr int kStages = kStagesInt8;
+  static constexpr size_t kRing = kConv + kStages * kStage;
+  static constexpr size_t kQSmem = F::kQSmem;
+  static constexpr size_t kSmem = kRing + kQSmem;
+  // loader threads a key row (2 at the least, so that every thread holds
+  // a row): a warp instruction reads 512 consecutive bytes of 8 D-64
+  // rows or of 4 D-128 rows; at D 80 and 96 four threads take the five or
+  // six pieces, which keeps two row addresses a thread, not four, live
+  // through the products (four spilled at one warp a row tile, D 80)
+  static constexpr int kRowThreads = Dp <= 32 ? 2 : Dp <= 96 ? 4 : 8;
+};
+
+// Four int8 (a word) to f32, exactly: each byte biased by 128 becomes the
+// low mantissa byte of 2^23, and 2^23 + 128 is subtracted.
+__device__ __forceinline__ void int8x4_to_f32(uint32_t w, float (&f)[4]) {
+  const uint32_t u = w ^ 0x80808080u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(__byte_perm(u, 0x4b000000u, 0x7540u | i)) -
+           8388736.f;
+}
+
+// 16 int8 to 16 values of T at dst (16-byte aligned).  An int8 value's f32
+// has at most 8 significant bits, so its bf16 is its top half, exactly.
+__device__ __forceinline__ void convert16(__nv_bfloat16* dst, uint4 x) {
+  const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+  uint32_t o[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float f[4];
+    int8x4_to_f32(w[i], f);
+    o[2 * i] =
+        __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632u);
+    o[2 * i + 1] =
+        __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632u);
+  }
+  uint4* d = reinterpret_cast<uint4*>(dst);
+  d[0] = make_uint4(o[0], o[1], o[2], o[3]);
+  d[1] = make_uint4(o[4], o[5], o[6], o[7]);
+}
+
+__device__ __forceinline__ void convert16(float* dst, uint4 x) {
+  const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float f[4];
+    int8x4_to_f32(w[i], f);
+    reinterpret_cast<float4*>(dst)[i] = make_float4(f[0], f[1], f[2], f[3]);
+  }
+}
+
+// The k-scales (keys) and v-scales (values) of a warp's keys, in shared
+// memory, one per key in q's type; each multiplies the key's column of
+// the score or probability fragments (columns 8n + 2 t4, + 1).
+template <typename T>
+struct RowScales {
+  const T* k;
+  const T* v;
+
+  __device__ __forceinline__ static float2 pair(const T* c) {
+    if constexpr (sizeof(T) == 4)
+      return *reinterpret_cast<const float2*>(c);
+    else
+      return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(c));
+  }
+  template <int NB>
+  __device__ __forceinline__ static void scale(const T* c, float (&s)[NB][4]) {
+    const int t4 = threadIdx.x & 3;
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+      const float2 f = pair(c + 8 * n + 2 * t4);
+      s[n][0] *= f.x;
+      s[n][1] *= f.y;
+      s[n][2] *= f.x;
+      s[n][3] *= f.y;
+    }
+  }
+  template <int NB>
+  __device__ __forceinline__ void keys(float (&s)[NB][4]) const {
+    scale(k, s);
+  }
+  template <int NB>
+  __device__ __forceinline__ void values(float (&s)[NB][4]) const {
+    scale(v, s);
+  }
+};
+
+// Start copying one int8 key tile into stage ``st``.  Thread t copies
+// rows j = p * kThreads / RowThreads + t / RowThreads (p < kRpt), every
+// RowThreads-th 16-byte piece from t % RowThreads, so a warp instruction
+// reads consecutive rows: ``row[p]`` of k and v (D bytes each; computed a
+// tile ahead).  Rows j >= nk and columns >= D are zero-filled, and so are
+// the scales of keys j >= nk (0 * NaN is not 0: a stale scale of a masked
+// key would reach P.V).  Scales come in pieces of ``spiece`` bytes (16, 8
+// or 4; kp keys each): thread t < 2 * (kTileN / kp) copies the K (then V)
+// scales of keys kp * (t % (kTileN / kp)) .. + kp, from ``srow`` on,
+// reading only the live ones; with ``spiece`` 0, thread t copies the
+// scale of one key through registers.  Without ``vec`` (D % 16 != 0 or
+// unaligned bases) the rows, too, go through registers.  The caller's
+// barrier after cp_async_wait() publishes all of it.
+template <typename T, int Dp, typename Tiles,
+          int kRpt = kTileN * Int8Layout<T, Dp>::kRowThreads / kThreads>
+__device__ __forceinline__ void load_int8_tile(unsigned char* st,
+                                               const Tiles& tiles, int t,
+                                               const size_t (&row)[kRpt],
+                                               size_t srow, int D, bool vec,
+                                               int spiece) {
+  using L = Int8Layout<T, Dp>;
+  constexpr int RT = L::kRowThreads;
+  constexpr int kP = Dp / 16;  // 16-byte pieces of a padded row
+  const int nk = tiles.nk(t);
+  const int par = threadIdx.x % RT;
+#pragma unroll
+  for (int p = 0; p < kRpt; ++p) {
+    const int j = p * (kThreads / RT) + threadIdx.x / RT;
+    int8_t* kd = reinterpret_cast<int8_t*>(st) + j * Dp;
+    int8_t* vd = kd + L::kRows;
+    if (j < nk && vec) {
+      const int8_t* kg = tiles.k(t) + row[p] * D;
+      const int8_t* vg = tiles.v(t) + row[p] * D;
+#pragma unroll
+      for (int i = par; i < kP; i += RT) {
+        if (i < D / 16) {
+          cp_async16(kd + 16 * i, kg + 16 * i);
+          cp_async16(vd + 16 * i, vg + 16 * i);
+        } else {
+          zero16(kd + 16 * i);
+          zero16(vd + 16 * i);
+        }
       }
-      if (KS == 1 || mask.nk > 0) {
-        const T* ks = ring + (t % S) * 2 * L::kTile + off * L::kStride;
-        float s[kKeys / 8][4];
-        mma.scores(ks, s);
-        sm.fold(s, mask, rp, scale_log2);
-        mma.pv(ks + L::kTile, s, sm.o);
+    } else if (j < nk) {
+      const int8_t* kg = tiles.k(t) + row[p] * D;
+      const int8_t* vg = tiles.v(t) + row[p] * D;
+      for (int d = par; d < Dp; d += RT) {
+        kd[d] = d < D ? kg[d] : 0;
+        vd[d] = d < D ? vg[d] : 0;
       }
+    } else {
+#pragma unroll
+      for (int i = par; i < kP; i += RT) {
+        zero16(kd + 16 * i);
+        zero16(vd + 16 * i);
+      }
+    }
+  }
+  T* sc = reinterpret_cast<T*>(st + 2 * L::kRows);  // K scales, then V
+  const int kp = spiece ? spiece / (int)sizeof(T) : 1;
+  const int np = kTileN / kp;
+  if ((int)threadIdx.x >= 2 * np) return;
+  const bool is_v = (int)threadIdx.x >= np;
+  const int j0 = (threadIdx.x % np) * kp;
+  T* dst = sc + (is_v ? kTileN : 0) + j0;
+  const T* src = (is_v ? tiles.vs : tiles.ks) + srow;
+  const int live = min(max(nk - j0, 0), kp);
+  if (spiece == 0) {
+    *dst = live ? *src : from_float<T>(0.f);
+  } else if (live) {
+    cp_async_zfill(dst, src, spiece, live * (int)sizeof(T));
+  } else if (spiece == 16) {
+    zero16(dst);
+  } else if (spiece == 8) {
+    *reinterpret_cast<uint2*>(dst) = make_uint2(0u, 0u);
+  } else {
+    *reinterpret_cast<uint32_t*>(dst) = 0u;
+  }
+}
+
+// Warp w's rows 16w .. 16w + 15 of the int8 K and V tiles in stage ``st``,
+// converted into the K and V tiles at ``conv`` (Layout<T, Dp> rows).
+template <typename T, int Dp>
+__device__ __forceinline__ void convert_rows(T* conv, const unsigned char* st) {
+  using L = Int8Layout<T, Dp>;
+  constexpr int kP = Dp / 16;
+  const int r0 = 16 * (threadIdx.x >> 5);
+#pragma unroll
+  for (int i = threadIdx.x & 31; i < 2 * 16 * kP; i += 32) {
+    const int kv = i / (16 * kP);  // 0: K, 1: V
+    const int r = r0 + i % (16 * kP) / kP;
+    const int c = i % kP;
+    const uint4 x = *reinterpret_cast<const uint4*>(st + kv * L::kRows + r * Dp +
+                                                    16 * c);
+    convert16(conv + kv * L::F::kTile + r * L::F::kStride + 16 * c, x);
+  }
+}
+
+// The key loop over int8 tiles (tiles.k / tiles.v int8 rows, tiles.ks /
+// tiles.vs their scales at the same row index), as key_loop: a ring of
+// kStagesInt8 stages, each thread's source rows (and its scale piece's)
+// computed a tile ahead, one barrier per tile that lands tile t and
+// frees tile t - 1's stage.  Then each warp converts its 16 rows of tile
+// t into the converted pair; with KS > 1 those are its own slice, so a
+// warp barrier publishes them, and with KS == 1 a second CTA barrier.
+// The products read the converted pair, the scale hooks the stage.
+// ``vec``: the rows go by 16-byte cp.async; ``spiece``: the scale pieces'
+// bytes (load_int8_tile).
+template <typename T, int Dp, int KS, typename Tiles>
+__device__ __forceinline__ void int8_key_loop(unsigned char* smem,
+                                              const Tiles& tiles,
+                                              const Mma<T, Dp>& mma,
+                                              Softmax<Dp>& sm, const RowPair& rp,
+                                              float scale_log2, int D, bool vec,
+                                              int spiece, bool compute) {
+  using L = Int8Layout<T, Dp>;
+  using F = typename L::F;
+  constexpr int S = L::kStages;
+  constexpr int RT = L::kRowThreads;
+  constexpr int kRpt = kTileN * RT / kThreads;  // rows per loader thread
+  T* conv = reinterpret_cast<T*>(smem);
+  unsigned char* ring = smem + L::kConv;
+  const int n_tiles = tiles.n;
+  const int np = spiece ? kTileN * (int)sizeof(T) / spiece : kTileN;
+  // the first key of this thread's scale piece (load_int8_tile)
+  const int sj = (threadIdx.x % np) * (kTileN / np);
+  const bool scaler = (int)threadIdx.x < 2 * np;
+  size_t next[kRpt], snext = 0;
+  const auto rows_of = [&](int t) {
+#pragma unroll
+    for (int p = 0; p < kRpt; ++p) {
+      const int j = p * (kThreads / RT) + threadIdx.x / RT;
+      next[p] = t < n_tiles && j < tiles.nk(t) ? tiles.row(t, j) : 0;
+    }
+    snext = scaler && t < n_tiles && sj < tiles.nk(t) ? tiles.row(t, sj) : 0;
+  };
+  const auto issue = [&](int t) {
+    load_int8_tile<T, Dp>(ring + (t % S) * L::kStage, tiles, t, next, snext,
+                          D, vec, spiece);
+  };
+#pragma unroll
+  for (int t = 0; t < S - 1; ++t) {
+    if (t < n_tiles) {
+      rows_of(t);
+      issue(t);
+    }
+    cp_async_commit();
+  }
+  rows_of(S - 1);
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<S - 2>();
+    __syncthreads();  // tile t is in; every warp is done with tile t - 1
+    if (t + S - 1 < n_tiles) issue(t + S - 1);
+    cp_async_commit();
+    rows_of(t + S);
+    const unsigned char* st = ring + (t % S) * L::kStage;
+    convert_rows<T, Dp>(conv, st);
+    if constexpr (KS == 1)
+      __syncthreads();
+    else
+      __syncwarp();
+    if (compute) {
+      const int off = slice_offset<KS>();
+      const T* sc = reinterpret_cast<const T*>(st + 2 * L::kRows) + off;
+      attend_slice<T, Dp, KS>(conv + off * F::kStride,
+                              conv + F::kTile + off * F::kStride, tiles.mask(t),
+                              off, mma, sm, rp, scale_log2,
+                              RowScales<T>{sc, sc + kTileN});
     }
   }
 }

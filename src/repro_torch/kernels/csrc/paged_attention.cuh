@@ -1,17 +1,19 @@
-// Shared pieces of the CUDA-core attention kernels: the int8-KV twins of
-// paged decode, dense per-slot decode and paged prefill (the float decode,
-// prefill and flash kernels run on the tensor cores: mma_attention.cuh,
-// decode_mma.cuh).
+// The CUDA-core body of the one kernel left on it: the int8-KV twin of
+// paged prefill (paged_prefill_attention.cu).  Every decode kernel and the
+// float prefill and flash kernels run on the tensor cores
+// (mma_attention.cuh, decode_mma.cuh); the int8 decode twins left this
+// file for decode_mma.cuh's int8 sources, and write_rows, which only they
+// used, went with them.
 //
-// Every kernel runs one CTA over a set of query rows that share one KV
-// head (the GQA group, times a tile of chunk positions for prefill) and
-// folds key tiles of kTileK keys into an f32 online softmax:
+// The kernel runs one CTA over a set of query rows that share one KV head
+// (the GQA group times a tile of chunk positions) and folds key tiles of
+// kTileK keys into an f32 online softmax:
 //
 //   scores  s[r][j] = (q[r] / sqrt(D)) . k[j]          (masked -> p = 0)
 //   m_new = max(m, max_j s),  p = exp(s - m_new),  alpha = exp(m - m_new)
 //   l = l * alpha + sum_j p,  acc[r][:] = acc[r][:] * alpha + sum_j p[j] v[j][:]
 //
-// and write acc / max(l, 1e-20), so a row that saw no key writes 0 (the
+// and writes acc / max(l, 1e-20), so a row that saw no key writes 0 (the
 // TPU kernels' denominator floor).  The key tile lives in shared memory
 // as f32, padded by one column so that the 32 lanes of a warp, each on
 // its own key, read 32 distinct banks.  Accumulators stay in registers:
@@ -98,10 +100,10 @@ __device__ __forceinline__ void init_rows(const Shared& sh, int rows,
   for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
 }
 
-// Key/value sources.  A row is one (sequence or page, KV head, position)
+// Key/value sources.  A row is one (page or chunk, KV head, position)
 // of D elements, addressed by its flat index; key(row, d) / value(row, d)
 // return element d as f32.  The loaders below are templated on the source,
-// so the float and int8 kernels share one tile loop.
+// so the int8 prefix and the float chunk share one tile loop.
 
 // Rows stored in the compute type T (float32 or bfloat16).
 template <typename T>
@@ -155,8 +157,7 @@ __device__ void load_page_tile(const Shared& sh, const KV& kv,
 }
 
 // Rows [j0, j0 + nk) of one contiguous (rows, D) slice whose first row has
-// flat index row0: a prefill chunk's own keys, or one (sequence, KV head)
-// of a dense per-slot cache.
+// flat index row0: a prefill chunk's own keys.
 template <typename KV>
 __device__ void load_row_tile(const Shared& sh, const KV& kv, size_t row0,
                               int D, int j0, int nk) {
@@ -223,20 +224,7 @@ __device__ void fold_tile(const Shared& sh, int rows, int D, int nk,
   __syncthreads();  // sh.k / sh.v / sh.s may be overwritten now
 }
 
-// Write the rows x D accumulator tile, normalised, to ob (row r at
-// ob + r * D): acc / max(l, 1e-20), so a row that saw no key writes 0.
-template <typename T>
-__device__ void write_rows(T* __restrict__ ob, const Shared& sh, int rows,
-                           int D, const float (&acc)[kAcc]) {
-#pragma unroll
-  for (int i = 0; i < kAcc; ++i) {
-    const int idx = threadIdx.x + i * kThreads;
-    if (idx < rows * D)
-      ob[idx] = from_float<T>(acc[i] / fmaxf(sh.l[idx / D], 1e-20f));
-  }
-}
-
-// Shape checks shared by the C entry points.
+// Shape checks of the C entry point.
 inline bool valid_heads(int B, int H, int KVH, int D) {
   return B >= 1 && KVH >= 1 && H % KVH == 0 && H / KVH <= kMaxRows &&
          D >= 1 && D <= kMaxD;

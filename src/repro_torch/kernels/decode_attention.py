@@ -20,14 +20,15 @@ What bounds both on the H100 is the live KV they read,
 3.35 TB/s: decode does 4 flops per element read.  The CTAs of a
 (sequence, KV head) hold the whole GQA group, read each live row once and
 stop at the last one (the tail is masked, not padded to a tile multiple).
-The float kernel is the split-KV tensor-core decode of
-``csrc/decode_mma.cuh``: several CTAs per (sequence, KV head) when S
-exceeds 256 (the plan, ``common.decode_plan``, reads shapes only), 64-key
-tiles by 16-byte ``cp.async``, the group's rows on ``mma.sync``, and the
-last CTA of each (sequence, KV head) to finish merging the partials from
-an f32 workspace.  The int8 twin keeps one CUDA-core CTA per (sequence,
-KV head) and dequantizes rows as they enter its f32 shared tile, so the
-device-memory read stays int8 plus scales.
+Both are the split-KV tensor-core decode of ``csrc/decode_mma.cuh``:
+several CTAs per (sequence, KV head) when S exceeds 256 (the plan,
+``common.decode_plan``, reads shapes only; ``quant=True`` for the int8
+layout), 64-key tiles by ``cp.async``, the group's rows on ``mma.sync``,
+and the last CTA of each (sequence, KV head) to finish merging the
+partials from an f32 workspace.  The int8 twin reads int8 rows plus
+scales from device memory, converts the rows exactly into bf16 (f32)
+tiles, and applies the k-scales to the scores and the v-scales to the
+probabilities in f32.
 
 On CPU tensors the wrappers run ``decode_attention_plain`` /
 ``decode_attention_quant_plain``, the same functions in plain PyTorch; on
@@ -40,7 +41,7 @@ import math
 import torch
 
 from repro_torch.kernels.common import (check_cuda_inputs, decode_plan,
-                                       launch, on_cpu, split_tickets)
+                                       launch, on_cpu, split_buffers)
 
 # launches of the float and the int8 CUDA kernel in this process (the
 # plain versions do not count); reset by whoever reads them
@@ -118,11 +119,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     KVH, S = k.shape[1], k.shape[2]
     plan = decode_plan(B, H, KVH, S, D, q.dtype)
     out = torch.empty_like(q)
-    ws = tickets = None
-    if plan.splits > 1:
-        ws = torch.empty(plan.workspace_floats, dtype=torch.float32,
-                         device=q.device)
-        tickets = split_tickets(q.device, B * KVH)
+    ws, tickets = split_buffers(plan, q.device, B * KVH)
     launch("decode_attention", "decode_attention", q.device,
            [q, k, v, lengths, out, ws, tickets],
            [B, H, KVH, S, D, dtype, plan.splits, plan.d_pad,
@@ -153,9 +150,12 @@ def decode_attention_quant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"and {tuple(v_scale.shape)}")
     B, H, D = q.shape
     KVH, S = k.shape[1], k.shape[2]
+    plan = decode_plan(B, H, KVH, S, D, q.dtype, quant=True)
     out = torch.empty_like(q)
+    ws, tickets = split_buffers(plan, q.device, B * KVH)
     launch("decode_attention", "decode_attention_quant", q.device,
-           [q, k, v, k_scale, v_scale, lengths, out],
-           [B, H, KVH, S, D, dtype])
+           [q, k, v, k_scale, v_scale, lengths, out, ws, tickets],
+           [B, H, KVH, S, D, dtype, plan.splits, plan.d_pad,
+            plan.smem_bytes])
     quant_launches += 1
     return out

@@ -24,14 +24,16 @@ What bounds it on the H100 is the live KV it must read,
 line.  Both kernels read every live page once per KV head (the CTAs of a
 (sequence, KV head) hold the whole GQA group of queries) and walk only the
 live blocks of the block table, so nothing is densified into device
-memory.  The float kernel is the split-KV tensor-core decode of
+memory.  Both are the split-KV tensor-core decode of
 ``csrc/decode_mma.cuh``: the plan (``common.decode_plan``, from shapes
-only) gives each (sequence, KV head) several CTAs when the table spans
-more than 256 keys, each CTA gathers 64-key tiles by 16-byte ``cp.async``
-and runs the group's rows on ``mma.sync``, and the last CTA of each
-(sequence, KV head) to finish merges the partial softmaxes from an f32
-workspace.  The int8 twin keeps one CUDA-core CTA per (sequence, KV head)
-and dequantizes rows as they enter its f32 shared tile.
+only; ``quant=True`` for the int8 layout) gives each (sequence, KV head)
+several CTAs when the table spans more than 256 keys, each CTA gathers
+64-key tiles by ``cp.async`` and runs the group's rows on ``mma.sync``,
+and the last CTA of each (sequence, KV head) to finish merges the
+partial softmaxes from an f32 workspace.  The int8 twin copies the int8
+rows and their scales, converts the rows exactly into bf16 (f32) tiles,
+and applies the k-scales to the scores and the v-scales to the
+probabilities in f32.
 
 On CPU tensors the wrappers run ``paged_decode_attention_plain`` /
 ``paged_decode_attention_quant_plain``, the same functions in plain
@@ -42,7 +44,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.common import (check_cuda_inputs, decode_plan,
-                                       launch, on_cpu, split_tickets)
+                                       launch, on_cpu, split_buffers)
 from repro_torch.kernels.decode_attention import (decode_attention_plain,
                                                   dequantize_rows)
 
@@ -131,11 +133,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     nb = block_table.shape[1]
     plan = decode_plan(B, H, KVH, nb * bs, D, q.dtype)
     out = torch.empty_like(q)
-    ws = tickets = None
-    if plan.splits > 1:
-        ws = torch.empty(plan.workspace_floats, dtype=torch.float32,
-                         device=q.device)
-        tickets = split_tickets(q.device, B * KVH)
+    ws, tickets = split_buffers(plan, q.device, B * KVH)
     launch("paged_decode_attention", "paged_decode_attention", q.device,
            [q, k_pages, v_pages, block_table, lengths, out, ws, tickets],
            [B, H, KVH, D, N, bs, nb, dtype, plan.splits, plan.d_pad,
@@ -173,9 +171,13 @@ def paged_decode_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
     B, H, D = q.shape
     N, KVH, bs, _ = k_pages.shape
     nb = block_table.shape[1]
+    plan = decode_plan(B, H, KVH, nb * bs, D, q.dtype, quant=True)
     out = torch.empty_like(q)
+    ws, tickets = split_buffers(plan, q.device, B * KVH)
     launch("paged_decode_attention", "paged_decode_attention_quant", q.device,
-           [q, k_pages, v_pages, k_scale, v_scale, block_table, lengths, out],
-           [B, H, KVH, D, N, bs, nb, dtype])
+           [q, k_pages, v_pages, k_scale, v_scale, block_table, lengths, out,
+            ws, tickets],
+           [B, H, KVH, D, N, bs, nb, dtype, plan.splits, plan.d_pad,
+            plan.smem_bytes])
     quant_launches += 1
     return out

@@ -9,11 +9,13 @@ within their limits, and the padded head_dim is one the kernels
 instantiate.  The C entry points refuse a plan whose bytes differ from
 their ring's, so the card tests hold this formula to the kernels.
 
-``decode_plan`` and ``split_range`` (the split-KV float decode kernels):
-every live key of a sequence falls in exactly one split for any length,
-the plan is a function of shapes alone, the serving shapes run one split
-(no workspace, no merge), and widths the kernels do not take are
-refused."""
+``decode_plan`` and ``split_range`` (the split-KV decode kernels, float
+and int8): every live key of a sequence falls in exactly one split for
+any length, the plan is a function of shapes alone, the serving shapes
+run one split (no workspace, no merge), and widths the kernels do not
+take are refused.  With ``quant`` (int8 KV) the shared bytes are those of
+the int8 layout (``csrc/mma_attention.cuh``, ``Int8Layout``), which the C
+entry points also check."""
 import inspect
 
 import numpy as np
@@ -120,7 +122,7 @@ def test_decode_plan_reads_shapes_only():
     """The plan takes integers and a dtype, nothing that holds lengths, so
     a call's split count is known on the host and fixed under capture."""
     params = inspect.signature(common.decode_plan).parameters
-    assert list(params) == ["B", "H", "KVH", "cap", "D", "dtype"]
+    assert list(params) == ["B", "H", "KVH", "cap", "D", "dtype", "quant"]
     a = common.decode_plan(8, 32, 8, 4096, 64, torch.bfloat16)
     assert a == common.decode_plan(8, 32, 8, 4096, 64, torch.bfloat16)
     assert a.splits > 1 and a.workspace_floats == 8 * 8 * a.splits * 4 * 66
@@ -145,3 +147,65 @@ def test_serving_shapes_run_one_split(dtype, cap):
 def test_decode_plan_refuses_what_the_kernels_do_not_take(H, KVH, D, cap):
     with pytest.raises(ValueError):
         common.decode_plan(1, H, KVH, cap, D, torch.float32)
+
+
+def _int8_layout_bytes(d_pad, dtype):
+    """Int8Layout<T, Dp>::kSmem: one converted (K, V) tile pair of 64
+    rows of d_pad elements plus 16 bytes, 3 stages of int8 K and V rows
+    (d_pad bytes each) with one scale per key each, and in f32 the q
+    split."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    conv = 2 * 64 * (d_pad * esize + 16)
+    stages = 3 * (2 * 64 * d_pad + 2 * 64 * esize)
+    q_split = 4 * d_pad * 128 if dtype == torch.float32 else 0
+    return conv + stages + q_split
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KVH,D", WIDTHS)
+def test_int8_decode_plan_fits(dtype, H, KVH, D):
+    for cap in (1, 128, 129, 2048, 4096):
+        plan = common.decode_plan(8, H, KVH, cap, D, dtype, quant=True)
+        assert plan.d_pad == min(p for p in common.MMA_D_PADS if p >= D)
+        assert plan.smem_bytes == _int8_layout_bytes(plan.d_pad, dtype)
+        assert plan.smem_bytes <= SMEM_PER_BLOCK
+        # never more shared memory than the float twin's ring
+        assert plan.smem_bytes < common.decode_plan(8, H, KVH, cap, D,
+                                                    dtype).smem_bytes
+        per_sm = min(common.SPLIT_CTAS_PER_SM,
+                     common.SMEM_PER_SM // (plan.smem_bytes + 1024))
+        if dtype == torch.bfloat16:              # D 128: as its float twin
+            assert per_sm == (3 if plan.d_pad <= 96 else 2)
+        assert plan.splits == max(1, min(
+            common.H100_SMS * per_sm // (8 * KVH),
+            -(-cap // common.SPLIT_MIN_KEYS), common.SPLIT_MAX))
+        assert plan.grid == (plan.splits, KVH, 8)
+        assert plan.workspace_floats == (
+            8 * KVH * plan.splits * (H // KVH) * (D + 2)
+            if plan.splits > 1 else 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_decode_plans_at_the_serve_caps_and_long_context(dtype):
+    """The serving caps (at most 256 keys a sequence) run one split; 8 x
+    4096 at granite's widths runs the float twins' 6 splits in bf16."""
+    for H, KVH, D in REGISTRY:
+        for cap in (128, 129, 256):
+            plan = common.decode_plan(8, H, KVH, cap, D, dtype, quant=True)
+            assert plan.splits == 1 and plan.workspace_floats == 0
+    plan = common.decode_plan(8, 32, 8, 4096, 64, torch.bfloat16, quant=True)
+    assert plan.smem_bytes == 43776
+    assert plan.splits == 6 and plan.grid == (6, 8, 8)
+    assert plan.workspace_floats == 8 * 8 * 6 * 4 * 66
+    # shapes only: the same plan for every call of the same shapes
+    assert plan == common.decode_plan(8, 32, 8, 4096, 64, torch.bfloat16,
+                                      quant=True)
+
+
+@pytest.mark.parametrize("H,KVH,D,cap", [(65, 1, 64, 128), (32, 8, 129, 128),
+                                         (32, 8, 0, 128), (30, 8, 64, 128),
+                                         (32, 8, 64, 0)])
+def test_int8_decode_plan_refuses_what_the_kernels_do_not_take(H, KVH, D,
+                                                               cap):
+    with pytest.raises(ValueError):
+        common.decode_plan(1, H, KVH, cap, D, torch.bfloat16, quant=True)

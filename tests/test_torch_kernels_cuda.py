@@ -235,7 +235,8 @@ def test_decode_kernels_match_plain(dev, dtype, quant, H, KVH, D, S):
     assert torch.count_nonzero(out[2]) == 0
 
 
-# The split-KV float decode kernels over caps of 2048 keys a sequence
+# The split-KV decode kernels (float and int8) over caps of 2048 keys a
+# sequence
 # (splits > 1): lengths 0 and 1, the split edges at multiples of 256 (and
 # 1025, whose last split holds one key) +-1, the cap, above the cap; one
 # or many splits in one batch; GQA groups 1, 4, 8, 64 at head_dim 64, 80
@@ -246,44 +247,53 @@ SPLIT_LENGTHS = [0, 1, 255, 256, 257, 511, 1023, 1024, 1025, 2047, 2048,
                  2100]
 
 
-def _split_case(kind, rng, dtype, dev, H, KVH, D, lengths):
-    """(wrapper, plain version, args) of the float ``kind`` decode kernel
-    ("paged" or "dense") over SPLIT_CAP keys a sequence."""
+def _split_case(kind, rng, dtype, dev, H, KVH, D, lengths, quant=False):
+    """(wrapper, plain version, args) of the ``kind`` decode kernel
+    ("paged" or "dense"; its int8 twin with ``quant``) over SPLIT_CAP keys
+    a sequence."""
     B = len(lengths)
     q = torch.tensor(rng.standard_normal((B, H, D)), dtype=dtype, device=dev)
     ln = torch.tensor(np.asarray(lengths, np.int32), device=dev)
+    sfx = "_quant" if quant else ""
     if kind == "dense":
-        k, v = (torch.tensor(rng.standard_normal((B, KVH, SPLIT_CAP, D)),
-                             dtype=dtype, device=dev) for _ in range(2))
-        return da.decode_attention, da.decode_attention_plain, (q, k, v, ln)
+        shape = (B, KVH, SPLIT_CAP, D)
+        kv = (_int8_rows(rng, shape, dtype, dev) if quant else
+              [torch.tensor(rng.standard_normal(shape), dtype=dtype,
+                            device=dev) for _ in range(2)])
+        return (getattr(da, "decode_attention" + sfx),
+                getattr(da, f"decode_attention{sfx}_plain"), (q, *kv, ln))
     nb = SPLIT_CAP // SPLIT_BS
     N = B * nb
-    kp, vp = _pool(rng, N, KVH, SPLIT_BS, D, dtype, dev)
+    kv = (_int8_rows(rng, (N, KVH, SPLIT_BS, D), dtype, dev) if quant else
+          _pool(rng, N, KVH, SPLIT_BS, D, dtype, dev))
     bt = _table(rng, B, nb, N, [nb] * B, dev)
     bt[1, 20] = N + 3                  # inside a split of a live sequence
     bt[-2, 40:42] = -1
     bt[-1, 127] = N
-    return (pda.paged_decode_attention, pda.paged_decode_attention_plain,
-            (q, kp, vp, bt, ln))
+    return (getattr(pda, "paged_decode_attention" + sfx),
+            getattr(pda, f"paged_decode_attention{sfx}_plain"),
+            (q, *kv, bt, ln))
 
 
 @pytest.mark.parametrize("kind", ["paged", "dense"])
+@pytest.mark.parametrize("quant", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("G", [1, 4, 8, 64])
 @pytest.mark.parametrize("D", [64, 80, 128])
-def test_split_decode_kernels_match_plain(dev, kind, dtype, G, D):
+def test_split_decode_kernels_match_plain(dev, kind, quant, dtype, G, D):
     rng = np.random.default_rng(11)
     KVH = 2
     fn, plain, args = _split_case(kind, rng, dtype, dev, G * KVH, KVH, D,
-                                  SPLIT_LENGTHS)
+                                  SPLIT_LENGTHS, quant)
     plan = common.decode_plan(len(SPLIT_LENGTHS), G * KVH, KVH, SPLIT_CAP, D,
-                              dtype)
+                              dtype, quant)
     assert plan.splits >= 5                   # long sequences use several
     mod = pda if kind == "paged" else da
-    before = mod.launches
+    counter = "quant_launches" if quant else "launches"
+    before = getattr(mod, counter)
     out = fn(*args)
     torch.cuda.synchronize()
-    assert mod.launches == before + 1         # one count, whatever splits
+    assert getattr(mod, counter) == before + 1  # one count, whatever splits
     torch.testing.assert_close(out.float(), plain(*args).float(),
                                **TOL[dtype])
     assert torch.count_nonzero(out[0]) == 0   # no valid key -> 0
@@ -292,13 +302,14 @@ def test_split_decode_kernels_match_plain(dev, kind, dtype, G, D):
 
 
 @pytest.mark.parametrize("kind", ["paged", "dense"])
+@pytest.mark.parametrize("quant", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_split_decode_replays_in_a_cuda_graph(dev, kind, dtype):
+def test_split_decode_replays_in_a_cuda_graph(dev, kind, quant, dtype):
     """The split count is fixed when the call is captured; each replay
     reads the lengths then in the buffer (0, the cap, and in between)."""
     rng = np.random.default_rng(12)
     fn, plain, args = _split_case(kind, rng, dtype, dev, 32, 8, 64,
-                                  [SPLIT_CAP] * 4)
+                                  [SPLIT_CAP] * 4, quant)
     ln = args[-1]
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
