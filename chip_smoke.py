@@ -2,10 +2,14 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --decode-timings [SRC]
+    python3 chip_smoke.py --kernel-timings [SRC]
 
 The second form times only the decode kernels, float and int8, and the
-granite decode steps (``decode_timings``), with the package under SRC, so
-that a parent commit's kernels can be timed beside this one's in one call.
+granite decode steps (``decode_timings``); the third the paged prefill
+kernels, float and int8, the SSD scan, the granite page-pool chunk rounds
+and mamba2's single-shot prefills (``kernel_timings``); both with the
+package under SRC, so that a parent commit's kernels can be timed beside
+this one's in one call.
 
 Phases, in order; any failure exits non-zero before the result lines:
 
@@ -14,11 +18,14 @@ Phases, in order; any failure exits non-zero before the result lines:
      per source, started together); print one line per library with
      ``ptxas``'s registers, spill bytes and static shared memory of each of
      its kernels, and one with the count of tensor-core instructions
-     (``HMMA``/``HGMMA``) in its SASS (``cuobjdump -sass``): the float
-     paged prefill, flash and paged / dense decode kernels must hold
-     them, or the run fails; every kernel of the two decode libraries must
-     be a split-KV ``decode_mma_kernel`` (int8 instances among them) with
-     tensor-core instructions and no spill bytes;
+     (``HMMA``/``HGMMA``) in its SASS (``cuobjdump -sass``): the paged
+     prefill, flash, paged / dense decode and SSD kernels must hold them,
+     or the run fails; every kernel of the two decode libraries must be a
+     split-KV ``decode_mma_kernel`` (int8 instances among them), every
+     kernel of the prefill library a ``prefill_mma_kernel`` (int8
+     instances among them), every flash kernel a ``flash_mma_kernel`` and
+     every SSD kernel an ``ssd_mma_kernel``, each with tensor-core
+     instructions and no spill bytes;
   3. kernel phase: the six serving kernels (paged decode, paged prefill,
      dense decode, each in float and int8-KV form) against their plain
      PyTorch versions on the card, in float32 and bfloat16, at granite-3-2b's
@@ -39,7 +46,9 @@ Phases, in order; any failure exits non-zero before the result lines:
      length-masked KV, the int8 ones beside the two calls that gather,
      dequantize and run SDPA, each with its split count; the float
      prefill also
-     beside SDPA over the gathered prefix plus the chunk, and at one chunk
+     beside SDPA over the gathered prefix plus the chunk, the int8 one
+     beside the two calls that gather and dequantize the prefix and run
+     SDPA over it and the chunk, and the float one at one chunk
      round of a single long prompt: B 1, 128 queries over a 4096-token
      prefix).
      Then flash attention in f32 and bf16 at granite's widths (B 2, 32
@@ -55,8 +64,10 @@ Phases, in order; any failure exits non-zero before the result lines:
      without an initial state, its final state returned, on the JAX
      tests' shapes (G > 1 among them), mamba2-130m's serving prefill (B 1,
      L 64, 24 heads of 64, N 128), L 2048, B 4 L 512 and zamba2's widths
-     (64 heads, N 64); f32 within 5e-4, the JAX kernel test's tolerance;
-     and its time at the serving prefill's shape (bf16, with the state in
+     (64 heads, N 64) at chunk 64 and 128; f32 within 5e-4, the JAX
+     kernel test's tolerance;
+     the f32 error at L 2048 printed on its own line; and its time at the
+     serving prefill's shape (bf16, with the state in
      and out, as the engine calls it) beside its bound and the plain
      version (no single PyTorch call computes the scan: ``library_ms``
      null), and for reference at L 512, L 2048 and B 4 L 512;
@@ -219,11 +230,16 @@ def read_launches() -> dict:
 # build: resources and tensor-core instructions
 # ---------------------------------------------------------------------------
 
-# libraries whose float kernels must run their products on the tensor cores
-MMA_LIBRARIES = ("paged_prefill_attention", "flash_attention",
-                 "paged_decode_attention", "decode_attention")
-# libraries whose every kernel, float and int8, is the split-KV decode core
-DECODE_LIBRARIES = ("paged_decode_attention", "decode_attention")
+# library -> (the kernel every one of its kernels must be, the instance
+# name that marks an int8 one, which must be among them, or None): each
+# with tensor-core instructions and no spill bytes
+CORE_LIBRARIES = {
+    "paged_decode_attention": ("decode_mma_kernel<", "Int8Source"),
+    "decode_attention": ("decode_mma_kernel<", "Int8Source"),
+    "paged_prefill_attention": ("prefill_mma_kernel<", "Int8Prefix"),
+    "flash_attention": ("flash_mma_kernel<", None),
+    "ssd_scan": ("ssd_mma_kernel<", None),
+}
 
 
 def _short_names(mangled) -> dict:
@@ -244,9 +260,9 @@ def _short_names(mangled) -> dict:
 def kernel_resources() -> None:
     """One line per library with ptxas's registers, spill bytes and static
     shared memory of each kernel; one with the HMMA/HGMMA count of each
-    kernel's SASS.  Every tensor-core kernel of MMA_LIBRARIES must hold
-    tensor-core instructions; every kernel of DECODE_LIBRARIES must be a
-    ``decode_mma_kernel``, int8 instances among them, with no spills."""
+    kernel's SASS.  Every kernel of CORE_LIBRARIES must be its library's
+    core kernel with tensor-core instructions, int8 instances among them
+    where it has any, with no spills."""
     from repro_torch.kernels import build
 
     for lib in build.SOURCES:
@@ -291,16 +307,13 @@ def kernel_resources() -> None:
         log(f"  sass {lib}: HMMA/HGMMA instructions {sum(counts.values())} "
             f"in {sum(1 for n in counts.values() if n)} of {len(counts)} "
             f"kernels; " + json.dumps(named))
-        if lib in MMA_LIBRARIES:
-            mma = {k: n for k, n in named.items() if "mma_kernel" in k}
-            check(mma and all(mma.values()),
-                  f"{lib}: a tensor-core kernel without HMMA/HGMMA: {named}")
-        if lib in DECODE_LIBRARIES:
+        if lib in CORE_LIBRARIES:
+            core, int8 = CORE_LIBRARIES[lib]
             spills = {short[k]: r["spill_bytes"] for k, r in res.items()}
-            check(all(k.startswith("decode_mma_kernel<") for k in named)
-                  and any("Int8Source" in k for k in named),
-                  f"{lib}: a decode kernel off the split-KV core, or no int8 "
-                  f"instance: {list(named)}")
+            check(all(k.startswith(core) and n for k, n in named.items())
+                  and (int8 is None or any(int8 in k for k in named)),
+                  f"{lib}: a kernel off {core}..>, without HMMA/HGMMA, or no "
+                  f"int8 instance: {named}")
             check(not any(spills.values()), f"{lib}: spills {spills}")
 
 
@@ -457,6 +470,20 @@ def _dequant(x, scale, dtype):
     return (x.float() * scale.float()[..., None]).to(dtype)
 
 
+def _prefill_mask(q, S, st, vd):
+    """The paged prefill's visibility over a gathered prefix of S
+    positions (< starts) plus the chunk's own keys (causal, < valid), as
+    one boolean SDPA mask (B, 1, C, S + C)."""
+    B, _, C, _ = q.shape
+    c = torch.arange(C, device="cuda")
+    return torch.cat([
+        (torch.arange(S, device="cuda")[None, :] < st[:, None])
+        [:, None, :].expand(B, C, S),
+        (c[None, :] <= c[:, None])[None] & (c[None, None, :]
+                                            < vd[:, None, None])],
+        dim=-1)[:, None]
+
+
 def prefill_library(args, dtype):
     """SDPA computing the float paged prefill on ``args``: the gathered
     prefix (positions < starts) plus the chunk's own keys (causal, <
@@ -464,19 +491,30 @@ def prefill_library(args, dtype):
     from repro_torch.kernels.paged_decode_attention import gather_pages
 
     q, kp, vp, ck, cv, bt, st, vd = args
-    B, _, C, _ = q.shape
-    S = bt.shape[1] * kp.shape[2]
-    c = torch.arange(C, device="cuda")
-    mask = torch.cat([
-        (torch.arange(S, device="cuda")[None, :] < st[:, None])
-        [:, None, :].expand(B, C, S),
-        (c[None, :] <= c[:, None])[None] & (c[None, None, :]
-                                            < vd[:, None, None])],
-        dim=-1)[:, None]
+    mask = _prefill_mask(q, bt.shape[1] * kp.shape[2], st, vd)
     k_all = torch.cat([gather_pages(kp, bt).to(dtype), ck], dim=2)
     v_all = torch.cat([gather_pages(vp, bt).to(dtype), cv], dim=2)
     return lambda: torch.nn.functional.scaled_dot_product_attention(
         q, k_all, v_all, attn_mask=mask, enable_gqa=True)
+
+
+def prefill_two_calls(args, dtype):
+    """What stands in for the int8 paged prefill without one PyTorch call:
+    gather the prefix's int8 pages and scales and dequantize them, then
+    SDPA over them and the chunk's keys under ``prefill_library``'s mask;
+    timed as two calls, never as ``library_ms``."""
+    from repro_torch.kernels.paged_decode_attention import gather_pages
+
+    q, kq, vq, ks, vs, ck, cv, bt, st, vd = args
+    mask = _prefill_mask(q, bt.shape[1] * kq.shape[2], st, vd)
+
+    def run():
+        k, v = (torch.cat([_dequant(gather_pages(x, bt), gather_pages(c, bt),
+                                    dtype), chunk], dim=2)
+                for x, c, chunk in ((kq, ks, ck), (vq, vs, cv)))
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True)
+    return run
 
 
 FLOAT_DECODE = ("paged_decode_attention", "decode_attention")
@@ -665,7 +703,9 @@ def kernel_phase(shapes: dict):
             library = None
             log("  paged_prefill_attention_quant: no single PyTorch call; at "
                 "the serving shapes the prefix is empty (every prompt fits "
-                "its first chunk), so the int8 pages are not read")
+                "its first chunk), so the int8 pages are not read; gather + "
+                "dequantize, then SDPA: " + json.dumps({
+                    "two_call_ms": time_ms(prefill_two_calls(args, dtype))}))
         else:
             library = prefill_library(args, dtype)
         # only the valid query rows are needed (rows past valid[b] are
@@ -755,6 +795,8 @@ def long_context(rng, gen, failures) -> None:
                 rec["library_ms"] = time_ms(decode_library(name, args))
             if name in INT8_DECODE:
                 rec["two_call_ms"] = time_ms(decode_two_calls(name, args))
+            if name == "paged_prefill_attention_quant":
+                rec["two_call_ms"] = time_ms(prefill_two_calls(args, dtype))
             if name in FLOAT_DECODE + INT8_DECODE:
                 rec["splits"] = decode_splits(name, args)
             log(f"  long context {name}{label}: " + json.dumps(rec))
@@ -859,7 +901,7 @@ def flash_phase(gen, failures, records) -> None:
 # (B, L, H, P, G, N, chunk) of the SSD scan cases: the JAX kernel tests'
 # shapes (G > 1 in the third), mamba2-130m's serving prefill (a prompt of
 # up to 64 tokens pads to one chunk), a long prefill, a batch, and
-# zamba2's SSM widths
+# zamba2's SSM widths at chunk 64 and at 128
 SSD_CASES = {
     "(1,64,2,16,1,8,16)": (1, 64, 2, 16, 1, 8, 16),
     "(2,128,4,32,2,16,32)": (2, 128, 4, 32, 2, 16, 32),
@@ -869,6 +911,7 @@ SSD_CASES = {
     "mamba2 B1 L2048": (1, 2048, 24, 64, 1, 128, 64),
     "mamba2 B4 L512": (4, 512, 24, 64, 1, 128, 64),
     "zamba2 widths L256": (1, 256, 64, 64, 1, 64, 64),
+    "zamba2 chunk 128 L256": (1, 256, 64, 64, 1, 64, 128),
 }
 
 
@@ -907,6 +950,7 @@ def ssd_phase(gen, failures, records) -> None:
     out), the timed record, and for reference at longer prefills."""
     from repro_torch.kernels import ssd_scan as ss
 
+    long_f32 = {}
     for dtype in (torch.float32, torch.bfloat16):
         for case, (B, L, H, P, G, N, Q) in SSD_CASES.items():
             x, dt, A, Bm, Cm, init = ssd_case(gen, dtype, B, L, H, P, G, N)
@@ -924,6 +968,11 @@ def ssd_phase(gen, failures, records) -> None:
                     f"{'ok' if ok and h_ok else 'FAIL'}")
                 if not (ok and h_ok):
                     failures.append(("ssd_scan", str(dtype), label))
+                if dtype == torch.float32 and case == "mamba2 B1 L2048":
+                    long_f32["state in" if state is not None
+                             else "zero state"] = {"y": err, "state": h_err}
+    log("  ssd_scan f32 mamba2 B1 L2048, max |kernel - plain|: "
+        + json.dumps(long_f32) + f" (tolerance {SSD_TOL[torch.float32]})")
 
     dtype, esize = torch.bfloat16, 2
     for case in ("mamba2 B1 L64", "mamba2 B1 L512", "mamba2 B1 L2048",
@@ -1520,12 +1569,120 @@ def decode_timings(src: Path) -> int:
     return 0
 
 
+def kernel_timings(src: Path) -> int:
+    """``--kernel-timings [SRC]``: the paged prefill kernels, float and
+    int8, the SSD scan and the steps that run them, with the
+    ``repro_torch`` package under ``SRC`` (default: this checkout's
+    ``src``), so that another tree's kernels (a ``git archive`` of a
+    parent commit) are timed by the same code in the same call.  Each
+    kernel against its plain version, then its device time (bf16): the
+    prefill twins at the serving shape and at 4 x 128 queries over a
+    2048-token prefix, beside SDPA (float) or the two calls that gather,
+    dequantize and run SDPA (int8); the SSD scan (state in and out) at
+    mamba2's widths, L 64, 512 and 2048 and B 4 L 512, beside its plain
+    version; the f32 SSD error at L 2048 against the plain version and,
+    for both, against the plain version evaluated in f64; then
+    the full-width granite page-pool chunk rounds, float and int8, and
+    mamba2's 64- and 512-token single-shot prefills.  The last line is
+    the records' JSON."""
+    sys.path.insert(0, str(src.resolve()))
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import build_model
+
+    log(f"[kernel-timings] repro_torch from {src}")
+    build.build(["paged_prefill_attention", "ssd_scan"])
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    shapes = serving_shapes()
+    B, nb, N, C = (shapes[k] for k in ("B", "nb", "N", "C"))
+    dtype, failures, records = torch.bfloat16, [], {}
+    valid = rng.integers(4, 24, size=B)
+    valid[-2:] = 0
+    for quant in (False, True):
+        name = "paged_prefill_attention" + ("_quant" if quant else "")
+        fn, _ = kernel_fns(name)
+        for label, args, rows in (
+                ("serving", prefill_case(rng, gen, dtype, [0] * B,
+                                         valid.tolist(), C, quant, nb=nb,
+                                         N=N), valid.tolist()),
+                ("4 x 2048", prefill_case(rng, gen, dtype, [2048] * 4,
+                                          [128] * 4, 128, quant), [128] * 4)):
+            err = check_case(failures, name, dtype, label, args, rows)
+            rec = {"ms": time_ms(lambda: fn(*args)), "max_abs_err": err}
+            if quant:
+                rec["two_call_ms"] = time_ms(prefill_two_calls(args, dtype))
+            else:
+                rec["library_ms"] = time_ms(prefill_library(args, dtype))
+            records[f"{name} {label}"] = rec
+            log(f"  {name} {label}: " + json.dumps(rec))
+    for case in ("mamba2 B1 L64", "mamba2 B1 L512", "mamba2 B1 L2048",
+                 "mamba2 B4 L512"):
+        Bs, L, H, P, G, Ns, Q = SSD_CASES[case]
+        x, dt, A, Bm, Cm, init = ssd_case(gen, dtype, Bs, L, H, P, G, Ns)
+        args = (x, dt, A, Bm, Cm, Q, init)
+        y, h = ss.ssd_scan(*args, return_state=True)
+        want_y, want_h = ss.ssd_scan_plain(*args, return_state=True)
+        err, ok = compare(y, want_y, dtype, tol=SSD_TOL)
+        _, h_ok = compare(h, want_h, torch.float32, tol=SSD_TOL)
+        rec = {"ms": time_ms(lambda: ss.ssd_scan(*args, return_state=True)),
+               "plain_ms": time_ms(lambda: ss.ssd_scan_plain(
+                   *args, return_state=True)), "max_abs_err": err}
+        if not (ok and h_ok):
+            failures.append(("ssd_scan", str(dtype), case))
+        records[f"ssd_scan {case}"] = rec
+        log(f"  ssd_scan {case} bf16, state in and out: " + json.dumps(rec))
+    x, dt, A, Bm, Cm, init = ssd_case(gen, torch.float32,
+                                      *SSD_CASES["mamba2 B1 L2048"][:-1])
+    y, h = ss.ssd_scan(x, dt, A, Bm, Cm, 64, init, return_state=True)
+    want_y, want_h = ss.ssd_scan_plain(x, dt, A, Bm, Cm, 64, init,
+                                       return_state=True)
+    def err(a, b):
+        return float((a.double() - b.double()).abs().max())
+    rec = {"y": err(y, want_y), "state": err(h, want_h)}
+    true_y, true_h = ss.ssd_scan_plain(
+        *(t.double() for t in (x, dt, A, Bm, Cm)), 64, init.double(),
+        return_state=True)
+    if true_h.dtype == torch.float64:    # a plain version that computes f64
+        rec.update({"y kernel - f64": err(y, true_y),
+                    "y plain - f64": err(want_y, true_y),
+                    "state kernel - f64": err(h, true_h),
+                    "state plain - f64": err(want_h, true_h),
+                    "max |y|": float(true_y.abs().max())})
+    records["ssd_scan f32 L2048 error"] = rec
+    log("  ssd_scan f32 mamba2 B1 L2048, state in, max |kernel - plain| and "
+        "both against the plain version in f64: "
+        + json.dumps(records["ssd_scan f32 L2048 error"]))
+    check(not failures, f"kernels disagree with their plain versions: "
+                        f"{failures}")
+    cfg = get_arch(GRANITE)
+    gen.manual_seed(0)
+    model = build_model(cfg)
+    quant = build_model(dataclasses.replace(cfg, kv_quant=True))
+    params = model.init(gen, torch.bfloat16, "cuda")
+    step_timings((("granite paged", (model, params), True),
+                  ("granite paged int8", (quant, params), True)))
+    del params
+    torch.cuda.empty_cache()
+    m_cfg = get_arch(MAMBA)
+    gen.manual_seed(2)
+    m_model = build_model(m_cfg)
+    ssm_step_timings(m_model, m_model.init(gen, torch.bfloat16, "cuda"))
+    print(json.dumps(records), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     if sys.argv[1:2] == ["--decode-timings"]:
         return decode_timings(Path(sys.argv[2]) if len(sys.argv) > 2
+                              else ROOT / "src")
+    if sys.argv[1:2] == ["--kernel-timings"]:
+        return kernel_timings(Path(sys.argv[2]) if len(sys.argv) > 2
                               else ROOT / "src")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_arch

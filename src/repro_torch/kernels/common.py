@@ -39,9 +39,9 @@ SPLIT_MAX = 64
 
 @dataclass(frozen=True)
 class AttentionPlan:
-    """Launch plan of a tensor-core attention kernel (flash, float paged
-    prefill): one CTA per (query tile, KV head, sequence), its rows the GQA
-    group's heads times ``tile_q`` positions.  The C entry points take
+    """Launch plan of a tensor-core attention kernel (flash, paged prefill
+    in float and int8): one CTA per (query tile, KV head, sequence), its
+    rows the GQA group's heads times ``tile_q`` positions.  The C entry points take
     ``tile_q``, ``d_pad`` and ``smem_bytes`` and refuse a plan they do not
     instantiate or whose bytes differ from their ring's."""
     group: int                  # query heads per KV head
@@ -49,44 +49,70 @@ class AttentionPlan:
     rows: int                   # group * tile_q <= MMA_ROWS query rows
     d_pad: int                  # head_dim padded to an instantiated width
     grid: Tuple[int, int, int]  # (query tiles, KV heads, sequences)
-    smem_bytes: int             # the K/V ring (+ q's TF32 parts in f32)
+    smem_bytes: int             # the K/V ring(s) (+ q's TF32 parts in f32)
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def _esize(dtype: torch.dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def _q_split_bytes(d_pad: int, dtype: torch.dtype) -> int:
+    """f32 only: each thread's q fragments split for 3xTF32 (TF32 high
+    parts and residuals), kept in shared memory past the rings."""
+    return 2 * MMA_THREADS * (d_pad // 2) * 4 if dtype == torch.float32 else 0
+
+
+def _float_ring(d_pad: int, dtype: torch.dtype) -> int:
+    """The float K/V ring (``Layout``): stages x (K, V) x 64 key rows of
+    ``d_pad`` elements plus 16 bytes (bank-conflict padding)."""
+    return MMA_STAGES[dtype] * 2 * MMA_TILE_KEYS * (d_pad * _esize(dtype) + 16)
+
+
+def _int8_ring(d_pad: int, dtype: torch.dtype) -> int:
+    """The int8 ring (``Int8Layout``): one converted (K, V) tile pair in
+    ``dtype`` (rows of ``d_pad`` elements plus 16 bytes), then the int8
+    stages (K and V rows of ``d_pad`` bytes, then one scale in ``dtype``
+    per key for each)."""
+    esize = _esize(dtype)
+    conv = 2 * MMA_TILE_KEYS * (d_pad * esize + 16)
+    stage = 2 * MMA_TILE_KEYS * d_pad + 2 * MMA_TILE_KEYS * esize
+    return conv + INT8_STAGES * stage
+
+
 def _ring_bytes(d_pad: int, dtype: torch.dtype) -> int:
-    """Shared bytes of a tensor-core kernel: its K/V ring and, in f32, each
-    thread's q split for 3xTF32."""
-    esize = torch.empty((), dtype=dtype).element_size()
-    smem = MMA_STAGES[dtype] * 2 * MMA_TILE_KEYS * (d_pad * esize + 16)
-    if dtype == torch.float32:
-        smem += 2 * MMA_THREADS * (d_pad // 2) * 4
-    return smem
+    """Shared bytes of a float tensor-core kernel: its K/V ring and, in
+    f32, each thread's q split for 3xTF32."""
+    return _float_ring(d_pad, dtype) + _q_split_bytes(d_pad, dtype)
 
 
 def _int8_ring_bytes(d_pad: int, dtype: torch.dtype) -> int:
-    """Shared bytes of the int8 decode kernels: one converted (K, V) tile
-    pair in ``dtype`` (rows of ``d_pad`` elements plus 16 bytes), the int8
-    stages (K and V rows of ``d_pad`` bytes, then one scale in ``dtype``
-    per key for each), and in f32 each thread's q split for 3xTF32."""
-    esize = torch.empty((), dtype=dtype).element_size()
-    conv = 2 * MMA_TILE_KEYS * (d_pad * esize + 16)
-    stage = 2 * MMA_TILE_KEYS * d_pad + 2 * MMA_TILE_KEYS * esize
-    smem = conv + INT8_STAGES * stage
-    if dtype == torch.float32:
-        smem += 2 * MMA_THREADS * (d_pad // 2) * 4
-    return smem
+    """Shared bytes of the int8 decode kernels: the int8 ring and, in f32,
+    each thread's q split."""
+    return _int8_ring(d_pad, dtype) + _q_split_bytes(d_pad, dtype)
+
+
+def _int8_prefill_bytes(d_pad: int, dtype: torch.dtype) -> int:
+    """Shared bytes of the int8 paged prefill (``PrefillInt8Layout``): the
+    int8 prefix ring and the chunk's float ring from one base (one loop
+    runs after the other), and in f32 q's split past the larger, where
+    neither loop writes."""
+    return (max(_float_ring(d_pad, dtype), _int8_ring(d_pad, dtype))
+            + _q_split_bytes(d_pad, dtype))
 
 
 def attention_plan(B: int, H: int, KVH: int, L: int, D: int,
-                   dtype: torch.dtype) -> AttentionPlan:
+                   dtype: torch.dtype, quant: bool = False) -> AttentionPlan:
     """The plan for ``L`` query positions of ``H`` heads on ``KVH`` KV
     heads, head_dim ``D``, in ``dtype``.  The ring holds stages x (K, V) x
     64 key rows of ``d_pad`` elements plus 16 bytes (bank-conflict
     padding); in f32 each thread's q fragments follow, as TF32 high parts
-    and residuals."""
+    and residuals.  With ``quant`` (the int8 paged prefill) the int8
+    prefix ring and the float chunk ring share one base and q's parts
+    follow the larger (``_int8_prefill_bytes``)."""
     if not (B >= 1 and KVH >= 1 and H % KVH == 0 and H // KVH <= MMA_ROWS
             and L >= 1 and 1 <= D <= MMA_D_PADS[-1]):
         raise ValueError(f"no attention plan for B={B} H={H} KVH={KVH} "
@@ -94,8 +120,9 @@ def attention_plan(B: int, H: int, KVH: int, L: int, D: int,
     group = H // KVH
     tile_q = min(L, MMA_ROWS // group)
     d_pad = next(p for p in MMA_D_PADS if p >= D)
+    smem = (_int8_prefill_bytes if quant else _ring_bytes)(d_pad, dtype)
     return AttentionPlan(group, tile_q, group * tile_q, d_pad,
-                         (-(-L // tile_q), KVH, B), _ring_bytes(d_pad, dtype))
+                         (-(-L // tile_q), KVH, B), smem)
 
 
 @dataclass(frozen=True)
@@ -138,6 +165,73 @@ def decode_plan(B: int, H: int, KVH: int, cap: int, D: int,
     workspace = B * KVH * splits * group * (D + 2) if splits > 1 else 0
     return DecodePlan(group, d_pad, splits, (splits, KVH, B), smem,
                       workspace)
+
+
+# The SSD scan (csrc/ssd_scan.cu): eight warps a CTA (four for y, four for
+# the state), one CTA per (slice of SSD_SLICE state columns, head,
+# sequence); chunks of at most 128 rows, chunk and state padded to the
+# 16-row mma tiles; two stages of the chunk's inputs where they fit, else
+# one.
+SSD_THREADS = 256
+SSD_SLICE = 16
+SSD_MAX_CHUNK = 128
+SSD_STATE_ROW = 24          # floats a shared state row
+
+
+@dataclass(frozen=True)
+class SsdPlan:
+    """Launch plan of the SSD scan: one CTA per (slice of ``slice_p``
+    columns of P, head, sequence), each over every chunk of its sequence
+    with its slice of the state.  The C entry point takes ``slice_p``,
+    ``stages`` and ``smem_bytes`` and refuses a plan it does not
+    instantiate or whose bytes differ from its layout."""
+    slice_p: int                # state / output columns per CTA
+    slices: int                 # ceil(P / slice_p)
+    grid: Tuple[int, int, int]  # (slices, heads, sequences)
+    q_pad: int                  # the chunk padded to 16 rows
+    n_pad: int                  # the state padded to 16 rows
+    stages: int                 # chunks in shared memory at once (2 or 1)
+    smem_bytes: int             # stages of B, C, x, dt; states; cumsums
+
+
+def _ssd_bytes(esize: int, q_pad: int, n_pad: int, stages: int) -> int:
+    """``ssd::layout``: ``stages`` stages, each B and C (q_pad rows of
+    n_pad elements plus 16 bytes), x's slice (q_pad rows of SSD_SLICE
+    elements plus 8 bf16 or 4 f32 of pad) and dt (q_pad floats); two f32
+    states of n_pad rows of SSD_STATE_ROW; each warp's cumsum or state
+    weights (q_pad floats)."""
+    stage = (2 * esize * q_pad * (n_pad + 16 // esize)
+             + esize * q_pad * (SSD_SLICE + (4 if esize == 4 else 8))
+             + 4 * q_pad)
+    return (stages * stage + 4 * 2 * n_pad * SSD_STATE_ROW
+            + 4 * (SSD_THREADS // 32) * q_pad)
+
+
+def ssd_plan(B: int, L: int, H: int, P: int, G: int, N: int, Q: int,
+             dtype: torch.dtype) -> SsdPlan:
+    """The plan for x (B, L, H, P), B/C (B, L, G, N) in ``dtype`` and
+    chunks of ``Q``; shapes only.  Two stages where their bytes fit a CTA,
+    else one (f32 at large chunk x d_state); refused where one does not
+    fit."""
+    if not (B >= 1 and L >= 1 and H >= 1 and G >= 1 and H % G == 0
+            and N >= 1 and P >= 1 and 1 <= Q <= SSD_MAX_CHUNK
+            and L % Q == 0 and B <= 65535 and H <= 65535
+            and dtype in DTYPE_CODES):
+        raise ValueError(f"no SSD plan for B={B} L={L} H={H} P={P} G={G} "
+                         f"N={N} chunk={Q} {dtype}: the kernel takes chunks "
+                         f"of 1..{SSD_MAX_CHUNK} dividing L, heads a "
+                         f"multiple of groups")
+    esize = _esize(dtype)
+    q_pad, n_pad = _cdiv(Q, 16) * 16, _cdiv(N, 16) * 16
+    stages = 2 if _ssd_bytes(esize, q_pad, n_pad, 2) <= SMEM_PER_SM else 1
+    smem = _ssd_bytes(esize, q_pad, n_pad, stages)
+    if smem > SMEM_PER_SM:
+        raise ValueError(f"no SSD plan for chunk {Q}, d_state {N} in "
+                         f"{dtype}: one stage takes {smem} bytes of shared "
+                         f"memory, over the {SMEM_PER_SM} a CTA may use")
+    slices = _cdiv(P, SSD_SLICE)
+    return SsdPlan(SSD_SLICE, slices, (slices, H, B), q_pad, n_pad, stages,
+                   smem)
 
 
 # per device: every ticket buffer handed out, the newest last (a captured

@@ -190,25 +190,6 @@ struct Int8Tiles : Rows {
   const T* vs;
 };
 
-// The int8 loader's copy modes for the kernel's ``vec``: bit 0, the rows
-// go by 16-byte cp.async (D % 16 == 0, aligned bases); the bits above,
-// the bytes of each scale copy: the largest of 16, 8 and 4 whose keys
-// never straddle a page or slot (``run`` keys: bs, or S) and whose
-// addresses are aligned, else 0 (key by key through registers).
-template <typename T>
-int int8_vec(int D, const void* k, const void* v, const T* ks, const T* vs,
-             int run) {
-  const void* rows[] = {k, v};
-  int piece = 0;
-  for (int bytes = 16; bytes >= 4 && bytes >= (int)sizeof(T); bytes /= 2)
-    if (run % (bytes / (int)sizeof(T)) == 0 && (uintptr_t)ks % bytes == 0 &&
-        (uintptr_t)vs % bytes == 0) {
-      piece = bytes;
-      break;
-    }
-  return rows_aligned(D, 1, rows, 2) | piece << 1;
-}
-
 template <typename T>
 struct PagedInt8Source {
   PagedSource<int8_t> rows;  // int8 pages (N, KVH, bs, D) and the table

@@ -1,5 +1,7 @@
-// Tensor-core tile core of the float paged-prefill and flash attention
-// kernels (sm_90a), shaped as FlashAttention-2.
+// Tensor-core tile core of the port's attention kernels (sm_90a), shaped
+// as FlashAttention-2: flash attention and the paged prefill (float and
+// int8) directly, the decode kernels through decode_mma.cuh.  The SSD
+// scan (ssd_scan.cu) takes its PTX wrappers and TF32 split.
 //
 // One CTA of four warps holds up to 64 query rows that share one KV head
 // (the GQA group times a tile of positions); warp w owns rows 16w..16w+15
@@ -981,6 +983,25 @@ inline bool rows_aligned(int D, size_t esize, const void* const* ptrs, int n) {
   for (int i = 0; i < n; ++i)
     if ((uintptr_t)ptrs[i] % 16 != 0) return false;
   return true;
+}
+
+// The int8 loader's copy modes for the kernel's ``vec``: bit 0, the rows
+// go by 16-byte cp.async (D % 16 == 0, aligned bases); the bits above,
+// the bytes of each scale copy: the largest of 16, 8 and 4 whose keys
+// never straddle a page or slot (``run`` keys: bs, or S) and whose
+// addresses are aligned, else 0 (key by key through registers).
+template <typename T>
+int int8_vec(int D, const void* k, const void* v, const T* ks, const T* vs,
+             int run) {
+  const void* rows[] = {k, v};
+  int piece = 0;
+  for (int bytes = 16; bytes >= 4 && bytes >= (int)sizeof(T); bytes /= 2)
+    if (run % (bytes / (int)sizeof(T)) == 0 && (uintptr_t)ks % bytes == 0 &&
+        (uintptr_t)vs % bytes == 0) {
+      piece = bytes;
+      break;
+    }
+  return rows_aligned(D, 1, rows, 2) | piece << 1;
 }
 
 // Dynamic shared memory of the ring, settable above the 48 KB default.

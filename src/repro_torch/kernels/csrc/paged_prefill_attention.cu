@@ -26,137 +26,32 @@
 //
 // Bound on the H100: at long context the products, 4 flops per (query
 // head, visible key, dimension), against the live prefix KV (2 *
-// sum_b starts[b] * KVH * D * sizeof(T)) plus q, the chunk k/v and the
-// output moved once; at the engine's short chunks the bytes, and in
-// practice the latency of one CTA's key loop.  One CTA per (b, kv_head, q
-// tile) holds the GQA group's queries of a tile of chunk positions (group
-// * tile <= 64 rows), so each live prefix page is read once per KV head
-// and q tile, never densified into a gathered copy, and both segments
-// fold into one online softmax.  The float kernel runs the tensor-core
-// core of mma_attention.cuh: 64-key tiles arrive by cp.async into a ring
-// of shared stages (the paged source looks each row's page up in the
-// block table a tile ahead and clamps it into the pool before forming an
-// address), and both products run as mma.sync (bf16, or 3xTF32 for f32)
-// with the scores, the probabilities and the output in registers.  Only
-// tiles that cross the prefix end or the chunk's causal edge evaluate a
-// per-element mask.  The launch plan (positions per tile, padded D,
-// shared bytes) comes from the Python wrapper
-// (kernels/common.py::attention_plan) and is checked here.  The int8 twin
-// still runs the CUDA-core body of paged_attention.cuh, dequantizing each
-// page row as it lands in its f32 shared tile.
+// sum_b starts[b] * KVH * D * sizeof(T), or D + sizeof(T) bytes a row in
+// int8) plus q, the chunk k/v and the output moved once; at the engine's
+// short chunks the bytes, and in practice the latency of one CTA's key
+// loop.  One CTA per (b, kv_head, q tile) holds the GQA group's queries of
+// a tile of chunk positions (group * tile <= 64 rows), so each live prefix
+// page is read once per KV head and q tile, never densified into a
+// gathered copy, and both segments fold into one online softmax.  Both
+// twins run the tensor-core core of mma_attention.cuh: 64-key tiles arrive
+// by cp.async into a ring of shared stages (the paged source looks each
+// row's page up in the block table a tile ahead and clamps it into the
+// pool before forming an address), and both products run as mma.sync
+// (bf16, or 3xTF32 for f32) with the scores, the probabilities and the
+// output in registers.  Only tiles that cross the prefix end or the
+// chunk's causal edge evaluate a per-element mask.
+//
+// The float kernel runs prefix and chunk tiles through one key_loop.  The
+// int8 twin runs its prefix through int8_key_loop (int8 rows and their
+// scales by cp.async, converted exactly into one bf16 / f32 tile pair, the
+// k-scales on the scores and the v-scales on the probabilities), then,
+// once every warp is done with that ring, the chunk's float tiles through
+// key_loop into the same softmax state.  The two rings overlap; in f32,
+// q's TF32 parts sit past the larger of them.  The launch plan (positions
+// per tile, padded D, shared bytes) comes from the Python wrapper
+// (kernels/common.py::attention_plan, with ``quant`` for the twin) and is
+// checked here.
 #include "mma_attention.cuh"
-#include "paged_attention.cuh"
-
-namespace paged {
-
-// The int8 twin's body (CUDA cores, 32-key tiles; KV = Int8KV<S>).
-template <typename T, typename KV>
-__global__ void __launch_bounds__(kThreads)
-    paged_prefill_kernel(const T* __restrict__ q, KV kv,
-                         const T* __restrict__ chunk_k,
-                         const T* __restrict__ chunk_v,
-                         const int* __restrict__ block_table,
-                         const int* __restrict__ starts,
-                         const int* __restrict__ valid, T* __restrict__ out,
-                         int H, int KVH, int C, int D, int N, int bs, int nb,
-                         int TQ) {
-  extern __shared__ float smem[];
-  const int c0 = blockIdx.x * TQ;  // first chunk position of this q tile
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int G = H / KVH;
-  const int rows = G * TQ;  // row r: head kvh * G + r / TQ, position c0 + r % TQ
-  const int vd = min(valid[b], C);
-  const size_t head0 = (size_t)b * H + (size_t)kvh * G;
-
-  if (c0 >= vd) {
-    for (int e = threadIdx.x; e < rows * D; e += kThreads) {
-      const int r = e / D;
-      const int c = c0 + r % TQ;
-      if (c < C)
-        out[((head0 + r / TQ) * C + c) * D + e % D] = from_float<T>(0.f);
-    }
-    return;
-  }
-
-  const Shared sh = carve(smem, rows, D);
-  const float scale = 1.f / sqrtf((float)D);
-  for (int e = threadIdx.x; e < rows * D; e += kThreads) {
-    const int r = e / D;
-    const int c = c0 + r % TQ;
-    sh.q[e] = c < C ? to_float(q[((head0 + r / TQ) * C + c) * D + e % D]) * scale
-                    : 0.f;
-  }
-  float acc[kAcc];
-  init_rows(sh, rows, acc);
-
-  // the prefix: chunk queries all sit at positions >= starts[b], so every
-  // live prefix key is visible to every row
-  const int n_prefix = min(starts[b], nb * bs);
-  const int* bt_row = block_table + (size_t)b * nb;
-  const auto all = [](int, int) { return true; };
-  for (int k0 = 0; k0 < n_prefix; k0 += kTileK) {
-    const int nk = min(kTileK, n_prefix - k0);
-    load_page_tile(sh, kv, bt_row, kvh, KVH, bs, D, N, k0, nk);
-    fold_tile(sh, rows, D, nk, all, acc);
-  }
-
-  // the chunk's own keys, causal within the chunk and below valid[b]; keys
-  // past this tile's last query are invisible to all of its rows
-  const int n_chunk = min(vd, min(c0 + TQ, C));
-  const FloatKV<T> chunk{chunk_k, chunk_v};
-  const size_t row0 = ((size_t)b * KVH + kvh) * C;
-  for (int j0 = 0; j0 < n_chunk; j0 += kTileK) {
-    const int nk = min(kTileK, n_chunk - j0);
-    load_row_tile(sh, chunk, row0, D, j0, nk);
-    const auto causal = [=](int r, int j) {
-      return j0 + j <= c0 + r % TQ && j0 + j < vd;
-    };
-    fold_tile(sh, rows, D, nk, causal, acc);
-  }
-  __syncthreads();
-
-#pragma unroll
-  for (int i = 0; i < kAcc; ++i) {
-    const int idx = threadIdx.x + i * kThreads;
-    if (idx < rows * D) {
-      const int r = idx / D;
-      const int c = c0 + r % TQ;
-      if (c < C)
-        out[((head0 + r / TQ) * C + c) * D + idx % D] =
-            from_float<T>(acc[i] / fmaxf(sh.l[r], 1e-20f));
-    }
-  }
-}
-
-template <typename T, typename KV>
-int launch(const void* q, KV kv, const void* chunk_k, const void* chunk_v,
-           const int* block_table, const int* starts, const int* valid,
-           void* out, int B, int H, int KVH, int C, int D, int N, int bs,
-           int nb, cudaStream_t stream) {
-  // query positions per tile: the GQA group times TQ fills <= kMaxRows rows
-  const int fit = kMaxRows / (H / KVH);
-  const int TQ = C < fit ? C : fit;
-  const size_t smem = shared_bytes((H / KVH) * TQ, D);
-  if (smem > kDefaultSmem) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        paged_prefill_kernel<T, KV>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid((C + TQ - 1) / TQ, KVH, B);
-  paged_prefill_kernel<T, KV><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, kv, (const T*)chunk_k, (const T*)chunk_v, block_table,
-      starts, valid, (T*)out, H, KVH, C, D, N, bs, nb, TQ);
-  return (int)cudaGetLastError();
-}
-
-inline bool valid_dims(int B, int H, int KVH, int C, int D, int N, int bs,
-                       int nb) {
-  return valid_heads(B, H, KVH, D) && C >= 1 && N >= 1 && bs >= 1 && nb >= 1;
-}
-
-}  // namespace paged
 
 namespace mma_attn {
 
@@ -195,17 +90,62 @@ struct PrefillTiles {
   }
 };
 
+// The int8 twin's prefix tiles: PrefillTiles' page lookup over the int8
+// pages, every tile a prefix tile (tp == n), with the scale pages at the
+// same row index (int8_key_loop reads ``ks`` / ``vs``).
+template <typename T>
+struct PrefillInt8Tiles : PrefillTiles<int8_t> {
+  const T* ks;
+  const T* vs;
+};
+
+// Shared memory of the int8 twin: the int8 prefix ring (Int8Layout) and,
+// once every warp is done with it, the chunk's float ring (Layout) from
+// the same base; q's TF32 parts (f32) past the larger of the two, where
+// neither loop writes.  kRing is their offset.
 template <typename T, int Dp>
+struct PrefillInt8Layout {
+  static constexpr size_t kRing = Layout<T, Dp>::kRing > Int8Layout<T, Dp>::kRing
+                                      ? Layout<T, Dp>::kRing
+                                      : Int8Layout<T, Dp>::kRing;
+  static constexpr size_t kSmem = kRing + Layout<T, Dp>::kQSmem;
+};
+
+// The page-resident prefix of each twin: float pages of q's type, read
+// through the chunk's ring, or int8 pages with their scale pages.
+template <typename T>
+struct FloatPrefix {
+  const T* k;  // (N, KVH, bs, D)
+  const T* v;
+  static constexpr bool kInt8 = false;
+  template <int Dp>
+  using Smem = Layout<T, Dp>;
+};
+
+template <typename T>
+struct Int8Prefix {
+  const int8_t* k;  // (N, KVH, bs, D)
+  const int8_t* v;
+  const T* ks;      // (N, KVH, bs)
+  const T* vs;
+  static constexpr bool kInt8 = true;
+  template <int Dp>
+  using Smem = PrefillInt8Layout<T, Dp>;
+};
+
+// ``vec``: the float rows (the chunk's, and the float prefix pages) go by
+// 16-byte cp.async; ``qvec``: the int8 twin's copy mode (int8_vec).
+template <typename T, int Dp, typename Prefix>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-    prefill_mma_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                       const T* __restrict__ v_pages,
+    prefill_mma_kernel(const T* __restrict__ q, Prefix prefix,
                        const T* __restrict__ chunk_k,
                        const T* __restrict__ chunk_v,
                        const int* __restrict__ block_table,
                        const int* __restrict__ starts,
                        const int* __restrict__ valid, T* __restrict__ out,
                        int H, int KVH, int C, int D, int N, int bs, int nb,
-                       int TQ, int vec) {
+                       int TQ, int vec, int qvec) {
+  using S = typename Prefix::template Smem<Dp>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int c0 = blockIdx.x * TQ;  // first chunk position of this q tile
   const int kvh = blockIdx.y;
@@ -227,7 +167,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 
   const RowPair rp(head0, rows, TQ, c0, C);
   Mma<T, Dp> mma;
-  mma.load_q(reinterpret_cast<uint32_t*>(smem_raw + Layout<T, Dp>::kRing),
+  mma.load_q(reinterpret_cast<uint32_t*>(smem_raw + S::kRing),
              rp.live[0] ? q + (rp.head[0] * C + rp.pos[0]) * D : nullptr,
              rp.live[1] ? q + (rp.head[1] * C + rp.pos[1]) * D : nullptr, D);
   Softmax<Dp> sm;
@@ -237,8 +177,6 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   // causal and below valid[b] (keys past this tile's last query are
   // invisible to all of its rows)
   PrefillTiles<T> tiles;
-  tiles.kp = k_pages;
-  tiles.vp = v_pages;
   tiles.ck = chunk_k;
   tiles.cv = chunk_v;
   tiles.bt_row = block_table + (size_t)b * nb;
@@ -252,41 +190,103 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   tiles.kvh = kvh;
   tiles.bs = bs;
   tiles.row0 = ((size_t)b * KVH + kvh) * C;
+  const float scale_log2 = kLog2e / sqrtf((float)D);
+  const bool compute = 16 * (int)(threadIdx.x >> 5) < rows;
+  if constexpr (Prefix::kInt8) {
+    PrefillInt8Tiles<T> pre;
+    pre.kp = prefix.k;
+    pre.vp = prefix.v;
+    pre.ck = nullptr;
+    pre.cv = nullptr;
+    pre.bt_row = tiles.bt_row;
+    pre.n = pre.tp = tiles.tp;
+    pre.n_prefix = tiles.n_prefix;
+    pre.n_chunk = 0;
+    pre.c0 = c0;
+    pre.N = N;
+    pre.KVH = KVH;
+    pre.kvh = kvh;
+    pre.bs = bs;
+    pre.row0 = 0;
+    pre.ks = prefix.ks;
+    pre.vs = prefix.vs;
+    int8_key_loop<T, Dp, 1>(smem_raw, pre, mma, sm, rp, scale_log2, D,
+                            (qvec & 1) != 0, qvec >> 1, compute);
+    cp_async_wait<0>();
+    __syncthreads();  // every warp is done with the int8 ring
+    tiles.kp = tiles.vp = nullptr;  // the chunk's loop reads no page
+    tiles.n -= tiles.tp;
+    tiles.tp = 0;
+  } else {
+    tiles.kp = prefix.k;
+    tiles.vp = prefix.v;
+  }
   key_loop<T, Dp>(reinterpret_cast<T*>(smem_raw), tiles, mma, sm, rp,
-                  kLog2e / sqrtf((float)D), D, vec,
-                  16 * (int)(threadIdx.x >> 5) < rows);
+                  scale_log2, D, vec != 0, compute);
 
   T* const dst[2] = {rp.live[0] ? out + (rp.head[0] * C + rp.pos[0]) * D : nullptr,
                      rp.live[1] ? out + (rp.head[1] * C + rp.pos[1]) * D : nullptr};
   sm.write(dst, D);
 }
 
-// Launch the float kernel with the wrapper's plan (TQ positions per tile,
-// Dp, smem bytes); a plan this file does not instantiate, or whose bytes
-// differ from the ring's, is refused.
-template <typename T>
-int launch_prefill(const void* q, const void* k_pages, const void* v_pages,
-                   const void* chunk_k, const void* chunk_v,
-                   const int* block_table, const int* starts,
-                   const int* valid, void* out, int B, int H, int KVH, int C,
-                   int D, int N, int bs, int nb, int TQ, int Dp, int smem,
-                   cudaStream_t stream) {
-  if (TQ < 1 || (H / KVH) * TQ > kRows || !valid_d_pad(D, Dp))
+// Launch either twin with the wrapper's plan (TQ positions per tile, Dp,
+// smem bytes); heads or sizes the kernel does not take, a plan this file
+// does not instantiate, or one whose bytes differ from the twin's shared
+// layout are refused.
+template <typename T, typename Prefix>
+int launch_prefill(const void* q, const Prefix& prefix, const void* chunk_k,
+                   const void* chunk_v, const int* block_table,
+                   const int* starts, const int* valid, void* out, int B,
+                   int H, int KVH, int C, int D, int N, int bs, int nb, int vec,
+                   int qvec, int TQ, int Dp, int smem, cudaStream_t stream) {
+  if (B < 1 || KVH < 1 || H < 1 || H % KVH != 0 || C < 1 || N < 1 ||
+      bs < 1 || nb < 1 || TQ < 1 || (H / KVH) * TQ > kRows ||
+      !valid_d_pad(D, Dp))
     return (int)cudaErrorInvalidValue;
-  const void* rows[] = {k_pages, v_pages, chunk_k, chunk_v};
-  const int vec = rows_aligned(D, sizeof(T), rows, 4);
   return with_d_pad(Dp, [&](auto dp) {
     constexpr int kDp = decltype(dp)::value;
-    if ((size_t)smem != Layout<T, kDp>::kSmem) return (int)cudaErrorInvalidValue;
-    const int err = allow_smem(prefill_mma_kernel<T, kDp>, (size_t)smem);
+    if ((size_t)smem != Prefix::template Smem<kDp>::kSmem)
+      return (int)cudaErrorInvalidValue;
+    const auto kernel = prefill_mma_kernel<T, kDp, Prefix>;
+    const int err = allow_smem(kernel, (size_t)smem);
     if (err != 0) return err;
     const dim3 grid((C + TQ - 1) / TQ, KVH, B);
-    prefill_mma_kernel<T, kDp><<<grid, kThreads, smem, stream>>>(
-        (const T*)q, (const T*)k_pages, (const T*)v_pages, (const T*)chunk_k,
-        (const T*)chunk_v, block_table, starts, valid, (T*)out, H, KVH, C, D,
-        N, bs, nb, TQ, vec);
+    kernel<<<grid, kThreads, smem, stream>>>(
+        (const T*)q, prefix, (const T*)chunk_k, (const T*)chunk_v,
+        block_table, starts, valid, (T*)out, H, KVH, C, D, N, bs, nb, TQ, vec,
+        qvec);
     return (int)cudaGetLastError();
   });
+}
+
+template <typename T>
+int prefill_float(const void* q, const void* k_pages, const void* v_pages,
+                  const void* chunk_k, const void* chunk_v, const int* bt,
+                  const int* st, const int* vd, void* out, int B, int H,
+                  int KVH, int C, int D, int N, int bs, int nb, int TQ, int Dp,
+                  int smem, cudaStream_t s) {
+  const void* rows[] = {k_pages, v_pages, chunk_k, chunk_v};
+  return launch_prefill<T>(
+      q, FloatPrefix<T>{(const T*)k_pages, (const T*)v_pages}, chunk_k,
+      chunk_v, bt, st, vd, out, B, H, KVH, C, D, N, bs, nb,
+      rows_aligned(D, sizeof(T), rows, 4), 0, TQ, Dp, smem, s);
+}
+
+template <typename T>
+int prefill_int8(const void* q, const void* k_pages, const void* v_pages,
+                 const void* k_scale, const void* v_scale, const void* chunk_k,
+                 const void* chunk_v, const int* bt, const int* st,
+                 const int* vd, void* out, int B, int H, int KVH, int C, int D,
+                 int N, int bs, int nb, int TQ, int Dp, int smem,
+                 cudaStream_t s) {
+  const Int8Prefix<T> prefix{(const int8_t*)k_pages, (const int8_t*)v_pages,
+                             (const T*)k_scale, (const T*)v_scale};
+  const void* rows[] = {chunk_k, chunk_v};
+  return launch_prefill<T>(
+      q, prefix, chunk_k, chunk_v, bt, st, vd, out, B, H, KVH, C, D, N, bs,
+      nb, rows_aligned(D, sizeof(T), rows, 2),
+      int8_vec(D, prefix.k, prefix.v, prefix.ks, prefix.vs, bs), TQ, Dp, smem,
+      s);
 }
 
 }  // namespace mma_attn
@@ -300,52 +300,44 @@ extern "C" int paged_prefill_attention(
     const void* starts, const void* valid, void* out, int B, int H, int KVH,
     int C, int D, int N, int bs, int nb, int dtype, int TQ, int Dp, int smem,
     void* stream) {
-  if (!paged::valid_dims(B, H, KVH, C, D, N, bs, nb))
-    return (int)cudaErrorInvalidValue;
+  using namespace mma_attn;
   const int* bt = (const int*)block_table;
   const int* st = (const int*)starts;
   const int* vd = (const int*)valid;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return mma_attn::launch_prefill<float>(q, k_pages, v_pages, chunk_k,
-                                           chunk_v, bt, st, vd, out, B, H,
-                                           KVH, C, D, N, bs, nb, TQ, Dp, smem,
-                                           s);
+    return prefill_float<float>(q, k_pages, v_pages, chunk_k, chunk_v, bt, st,
+                                vd, out, B, H, KVH, C, D, N, bs, nb, TQ, Dp,
+                                smem, s);
   if (dtype == 1)
-    return mma_attn::launch_prefill<__nv_bfloat16>(
-        q, k_pages, v_pages, chunk_k, chunk_v, bt, st, vd, out, B, H, KVH, C,
-        D, N, bs, nb, TQ, Dp, smem, s);
+    return prefill_float<__nv_bfloat16>(q, k_pages, v_pages, chunk_k, chunk_v,
+                                        bt, st, vd, out, B, H, KVH, C, D, N,
+                                        bs, nb, TQ, Dp, smem, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // int8 pages, float chunk k/v; dtype (of q, the scales, the chunk and out):
-// 0 = float32, 1 = bfloat16.
+// 0 = float32, 1 = bfloat16; TQ, Dp, smem: the launch plan
+// (kernels/common.py::attention_plan with quant).
 extern "C" int paged_prefill_attention_quant(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scale, const void* v_scale, const void* chunk_k,
     const void* chunk_v, const void* block_table, const void* starts,
     const void* valid, void* out, int B, int H, int KVH, int C, int D, int N,
-    int bs, int nb, int dtype, void* stream) {
-  using namespace paged;
-  if (!valid_dims(B, H, KVH, C, D, N, bs, nb))
-    return (int)cudaErrorInvalidValue;
+    int bs, int nb, int dtype, int TQ, int Dp, int smem, void* stream) {
+  using namespace mma_attn;
   const int* bt = (const int*)block_table;
   const int* st = (const int*)starts;
   const int* vd = (const int*)valid;
   cudaStream_t s = (cudaStream_t)stream;
-  const int8_t* kq = (const int8_t*)k_pages;
-  const int8_t* vq = (const int8_t*)v_pages;
   if (dtype == 0)
-    return launch<float>(
-        q,
-        Int8KV<float>{kq, vq, (const float*)k_scale, (const float*)v_scale},
-        chunk_k, chunk_v, bt, st, vd, out, B, H, KVH, C, D, N, bs, nb, s);
+    return prefill_int8<float>(q, k_pages, v_pages, k_scale, v_scale, chunk_k,
+                               chunk_v, bt, st, vd, out, B, H, KVH, C, D, N,
+                               bs, nb, TQ, Dp, smem, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(
-        q,
-        Int8KV<__nv_bfloat16>{kq, vq, (const __nv_bfloat16*)k_scale,
-                              (const __nv_bfloat16*)v_scale},
-        chunk_k, chunk_v, bt, st, vd, out, B, H, KVH, C, D, N, bs, nb, s);
+    return prefill_int8<__nv_bfloat16>(q, k_pages, v_pages, k_scale, v_scale,
+                                       chunk_k, chunk_v, bt, st, vd, out, B, H,
+                                       KVH, C, D, N, bs, nb, TQ, Dp, smem, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -30,12 +30,14 @@ output, at 3.35 TB/s (at the engine's chunk lengths the flops stay under
 the tensor-core line).  The kernels stream the prefix pages in place,
 without densifying them, once per KV head and tile of at most 64 query
 rows (the GQA group times a tile of chunk positions), and fold prefix and
-chunk into one f32 online softmax.  The float kernel (plan:
-``common.attention_plan``) brings 64-key tiles in by ``cp.async`` into a
-ring of shared stages and runs both products on the tensor cores
-(``mma.sync``: bf16, or 3xTF32 for f32); the int8 twin keeps the
-CUDA-core body and dequantizes prefix rows as they enter its f32 shared
-tile.
+chunk into one f32 online softmax.  Both kernels (plan:
+``common.attention_plan``, with ``quant`` for the int8 twin) bring 64-key
+tiles in by ``cp.async`` into a ring of shared stages and run both
+products on the tensor cores (``mma.sync``: bf16, or 3xTF32 for f32).
+The int8 twin brings its prefix rows in as int8 with their scales,
+converts them exactly (unscaled) into bf16 / f32 tiles and applies the
+k-scales to the scores and the v-scales to the probabilities in f32;
+then the chunk's float tiles fold into the same softmax.
 
 On CPU tensors the wrappers run ``paged_prefill_attention_plain`` /
 ``paged_prefill_attention_quant_plain``; on CUDA tensors they launch the
@@ -213,11 +215,13 @@ def paged_prefill_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
     B, H, C, D = q.shape
     N, KVH, bs, _ = k_pages.shape
     nb = block_table.shape[1]
+    plan = attention_plan(B, H, KVH, C, D, q.dtype, quant=True)
     out = torch.empty_like(q)
     launch("paged_prefill_attention", "paged_prefill_attention_quant",
            q.device,
            [q, k_pages, v_pages, k_scale, v_scale, chunk_k, chunk_v,
             block_table, starts, valid, out],
-           [B, H, KVH, C, D, N, bs, nb, dtype])
+           [B, H, KVH, C, D, N, bs, nb, dtype, plan.tile_q, plan.d_pad,
+            plan.smem_bytes])
     quant_launches += 1
     return out

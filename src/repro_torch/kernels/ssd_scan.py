@@ -24,11 +24,21 @@ which is the reference's jnp ``ssd_chunked`` (``src/repro/models/ssm.py``)
 and, with ``init_state=None`` and ``return_state=False``, exactly the
 Pallas kernel's contract; the Pallas kernel carries the state across its
 sequential chunk axis but neither takes one in nor returns it, which the
-serving path needs.  All arithmetic is f32.
+serving path needs.  All sums are f32 and every product f32-accurate;
+the kernel sums its products in the tensor cores' f32 accumulators,
+which do not round to nearest, so its f32 error grows faster with the
+number of chunks than the plain version's.
 
 What bounds the kernel on the H100 is the bytes it moves: x, y, B, C and
-dt once, and the two f32 states.  One CTA per (head, sequence) walks the
-chunks in order with the state in shared memory (``csrc/ssd_scan.cu``).
+dt once, and the two f32 states; at the serving prefill (one chunk) the
+latency of one CTA's chain of steps sets its pace.  The CTAs split P into
+slices of 16 columns (plan: ``common.ssd_plan``): one CTA per (slice,
+head, sequence) walks the chunks in order, its slice of the state in
+shared memory, the next chunk's x, B, C and dt in flight by
+``cp.async``, and the four products on the tensor cores (``mma.sync``)
+in f32 accuracy (``csrc/ssd_scan.cu``).  It takes chunks of up to 128
+rows, and any d_state whose chunk inputs fit a CTA's shared memory once
+(``ssd_plan`` says which).
 
 On CPU tensors ``ssd_scan`` runs ``ssd_scan_plain``, the same function in
 plain PyTorch; on CUDA tensors it launches the kernel or raises.  It is
@@ -41,15 +51,12 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from repro_torch.kernels.common import check_cuda_inputs, launch, on_cpu
+from repro_torch.kernels.common import (check_cuda_inputs, launch, on_cpu,
+                                       ssd_plan)
 
 # launches of the CUDA kernel in this process (the plain version does not
 # count); reset by whoever reads it
 launches = 0
-
-# the kernel's limits (csrc/ssd_scan.cu): 256 threads, each owning up to
-# 16 rows by 4 columns of a product's output, and a CTA's shared memory
-_THREADS, _MAX_ROWS, _MAX_SMEM = 256, 16, 232448
 
 Result = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
@@ -58,16 +65,18 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                    Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
                    init_state: Optional[torch.Tensor] = None,
                    return_state: bool = False) -> Result:
-    """Plain PyTorch version of the kernel (same contract), in f32."""
+    """Plain PyTorch version of the kernel (same contract), in f32, or in
+    f64 for f64 inputs (a reference for the kernel's f32 error)."""
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
     Bsz, L, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     nc, Q, rep = L // chunk, chunk, H // G
-    xc = x.float().reshape(Bsz, nc, Q, H, P)
-    dtc = dt.float().reshape(Bsz, nc, Q, H)
-    Bc = Bm.float().repeat_interleave(rep, dim=2).reshape(Bsz, nc, Q, H, N)
-    Cc = Cm.float().repeat_interleave(rep, dim=2).reshape(Bsz, nc, Q, H, N)
+    xc = x.to(acc).reshape(Bsz, nc, Q, H, P)
+    dtc = dt.to(acc).reshape(Bsz, nc, Q, H)
+    Bc = Bm.to(acc).repeat_interleave(rep, dim=2).reshape(Bsz, nc, Q, H, N)
+    Cc = Cm.to(acc).repeat_interleave(rep, dim=2).reshape(Bsz, nc, Q, H, N)
 
-    cum = torch.cumsum(dtc * A.float(), dim=2)            # (B, nc, Q, H)
+    cum = torch.cumsum(dtc * A.to(acc), dim=2)            # (B, nc, Q, H)
     # exp only where j <= i: -inf elsewhere gives exactly 0
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # (B, nc, Q, Q, H)
     causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
@@ -81,8 +90,8 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     states = torch.einsum("bnjhs,bnjhp->bnhsp", Bc,
                           xc * (dtc * decay_to_end)[..., None])
     chunk_decay = torch.exp(cum[:, :, -1, :])             # (B, nc, H)
-    h = (torch.zeros((Bsz, H, N, P), dtype=torch.float32, device=x.device)
-         if init_state is None else init_state.float())
+    h = (torch.zeros((Bsz, H, N, P), dtype=acc, device=x.device)
+         if init_state is None else init_state.to(acc))
     entering = []
     for c in range(nc):
         entering.append(h)
@@ -115,21 +124,6 @@ def _check_shapes(x, dt, A, Bm, Cm, chunk, init_state) -> None:
                          f"got {tuple(init_state.shape)}")
 
 
-def _fits(rows: int, cols: int) -> bool:
-    """Whether a rows x cols product splits into the kernel's thread tiles
-    (``fits`` in csrc/ssd_scan.cu)."""
-    if cols % 4 or cols // 4 > _THREADS:
-        return False
-    rstep = _THREADS // (cols // 4)
-    return -(-rows // rstep) <= _MAX_ROWS
-
-
-def _shared_bytes(Q: int, N: int, P: int) -> int:
-    """The kernel's shared memory (``layout`` in csrc/ssd_scan.cu)."""
-    return 4 * (Q * P + N * P + N * (Q + 4) + Q * (N + 1) + Q * (Q + 1)
-                + 2 * Q)
-
-
 def _launch(x, dt, A, Bm, Cm, chunk, init_state, return_state) -> Result:
     global launches
     dtype = check_cuda_inputs("ssd_scan", {"x": x, "Bm": Bm, "Cm": Cm}, {})
@@ -147,18 +141,14 @@ def _launch(x, dt, A, Bm, Cm, chunk, init_state, return_state) -> Result:
                            "torch.no_grad()")
     Bsz, L, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
-    if not (_fits(chunk, chunk) and _fits(chunk, P) and _fits(N, P)
-            and _shared_bytes(chunk, N, P) <= _MAX_SMEM and Bsz <= 65535):
-        raise ValueError(f"ssd_scan: the kernel takes chunk and head_dim "
-                         f"multiples of 4 with at most {_MAX_ROWS} rows of "
-                         f"each product per thread and {_MAX_SMEM} bytes of "
-                         f"shared memory, got chunk {chunk}, N {N}, P {P}")
+    plan = ssd_plan(Bsz, L, H, P, G, N, chunk, x.dtype)
     y = torch.empty_like(x)
     final = (torch.empty((Bsz, H, N, P), dtype=torch.float32,
                          device=x.device) if return_state else None)
     launch("ssd_scan", "ssd_scan", x.device,
            [x, dt, A, Bm, Cm, init_state, y, final],
-           [Bsz, L, H, G, N, P, chunk, dtype])
+           [Bsz, L, H, G, N, P, chunk, dtype, plan.slice_p, plan.stages,
+            plan.smem_bytes])
     launches += 1
     return (y, final) if return_state else y
 

@@ -15,7 +15,20 @@ any length, the plan is a function of shapes alone, the serving shapes
 run one split (no workspace, no merge), and widths the kernels do not
 take are refused.  With ``quant`` (int8 KV) the shared bytes are those of
 the int8 layout (``csrc/mma_attention.cuh``, ``Int8Layout``), which the C
-entry points also check."""
+entry points also check.
+
+``attention_plan(..., quant=True)`` (the int8 paged prefill): the float
+twin's rows and grid, the int8 prefix ring and the chunk's float ring
+from one base, q's TF32 parts (f32) past the larger of the two
+(``PrefillInt8Layout``), within 227 KB.
+
+``ssd_plan`` (the SSD scan): the slices of P cover every column once, the
+grid is (slices, H, B), the shared bytes are those of ``ssd::layout``
+(two stages of B, C, x's slice and dt where they fit, else one; two
+states; each warp's cumsum or weights) and fit, the serving prefill's CTA
+count, every shape the CUDA-core kernel before it took up to d_state 256
+(bf16) or 160 (f32) is taken, and shapes the kernel does not take are
+refused; it reads shapes only."""
 import inspect
 
 import numpy as np
@@ -209,3 +222,148 @@ def test_int8_decode_plan_refuses_what_the_kernels_do_not_take(H, KVH, D,
                                                                cap):
     with pytest.raises(ValueError):
         common.decode_plan(1, H, KVH, cap, D, torch.bfloat16, quant=True)
+
+
+def _float_ring(d_pad, dtype):
+    esize = torch.empty((), dtype=dtype).element_size()
+    return common.MMA_STAGES[dtype] * 2 * 64 * (d_pad * esize + 16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KVH,D", WIDTHS)
+def test_int8_prefill_plan_puts_q_past_both_rings(dtype, H, KVH, D):
+    q_split = 4 * 128 * (min(p for p in common.MMA_D_PADS if p >= D))
+    for L in LENGTHS:
+        plan = common.attention_plan(3, H, KVH, L, D, dtype, quant=True)
+        float_plan = common.attention_plan(3, H, KVH, L, D, dtype)
+        assert (plan.group, plan.tile_q, plan.rows, plan.d_pad, plan.grid) \
+            == (float_plan.group, float_plan.tile_q, float_plan.rows,
+                float_plan.d_pad, float_plan.grid)
+        qs = q_split if dtype == torch.float32 else 0
+        int8_ring = _int8_layout_bytes(plan.d_pad, dtype) - qs
+        float_ring = _float_ring(plan.d_pad, dtype)
+        # q's parts start where neither loop's ring reaches
+        assert plan.smem_bytes - qs == max(int8_ring, float_ring)
+        assert plan.smem_bytes <= SMEM_PER_BLOCK
+
+
+def test_int8_prefill_plan_at_the_serve_shape():
+    """granite's widths in bf16: the float ring (55,296 bytes) is the
+    larger, so the int8 twin takes the float twin's shared bytes; in f32
+    at D 128 q's 64 KB follow the 132 KB float ring."""
+    plan = common.attention_plan(8, 32, 8, 32, 64, torch.bfloat16,
+                                 quant=True)
+    assert plan.smem_bytes == 55296 == common.attention_plan(
+        8, 32, 8, 32, 64, torch.bfloat16).smem_bytes
+    assert plan.grid == (2, 8, 8) and plan.rows == 64
+    assert common.attention_plan(1, 8, 2, 16, 128, torch.float32,
+                                 quant=True).smem_bytes == 135168 + 65536
+
+
+@pytest.mark.parametrize("H,KVH,D", [(65, 1, 64), (32, 8, 129), (32, 8, 0),
+                                     (30, 8, 64)])
+def test_int8_prefill_plan_refuses_what_the_kernel_does_not_take(H, KVH, D):
+    with pytest.raises(ValueError):
+        common.attention_plan(1, H, KVH, 16, D, torch.bfloat16, quant=True)
+
+
+# (B, L, H, P, G, N, chunk): mamba2-130m's serving prefill, long prefills
+# and a batch, zamba2's widths (at chunk 64 and 128), d_state 256,
+# the JAX tests' shapes, a half-full last slice (P 24) and ragged widths
+# that pad everywhere
+SSD_PLAN_SHAPES = [(1, 64, 24, 64, 1, 128, 64), (1, 2048, 24, 64, 1, 128, 64),
+                   (4, 512, 24, 64, 1, 128, 64), (1, 256, 64, 64, 1, 64, 64),
+                   (1, 256, 64, 64, 1, 64, 128), (1, 128, 4, 64, 1, 256, 64),
+                   (1, 64, 2, 16, 1, 8, 16), (2, 128, 4, 32, 2, 16, 32),
+                   (1, 32, 8, 8, 4, 4, 8), (1, 96, 2, 24, 1, 32, 32),
+                   (1, 24, 3, 6, 1, 5, 4)]
+
+
+def _ssd_layout_bytes(dtype, Q, N, stages):
+    """ssd::layout<T>(Q, N, stages).total: ``stages`` stages of B and C (Qp
+    rows of Np elements plus 16 bytes), x's slice (Qp rows of 16 plus 8
+    bf16 / 4 f32 elements) and dt (Qp floats); two f32 states of Np rows
+    of 24; eight warps' cumsums or weights (Qp floats each)."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    Qp, Np = -(-Q // 16) * 16, -(-N // 16) * 16
+    stage = (2 * Qp * (Np * esize + 16)
+             + Qp * (16 + (4 if esize == 4 else 8)) * esize + 4 * Qp)
+    return stages * stage + 2 * Np * 24 * 4 + 8 * Qp * 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SSD_PLAN_SHAPES)
+def test_ssd_plan_slices_cover_p_once_and_fit(dtype, shape):
+    B, L, H, P, G, N, Q = shape
+    plan = common.ssd_plan(B, L, H, P, G, N, Q, dtype)
+    assert plan.slice_p == common.SSD_SLICE == 16
+    assert plan.grid == (plan.slices, H, B)
+    seen = np.zeros(P, np.int64)
+    for x in range(plan.slices):
+        seen[x * plan.slice_p:(x + 1) * plan.slice_p] += 1
+    assert (seen == 1).all()
+    assert (plan.slices - 1) * plan.slice_p < P
+    assert (plan.q_pad, plan.n_pad) == (-(-Q // 16) * 16, -(-N // 16) * 16)
+    two = _ssd_layout_bytes(dtype, Q, N, 2)
+    assert plan.stages == (2 if two <= SMEM_PER_BLOCK else 1)
+    assert plan.smem_bytes == _ssd_layout_bytes(dtype, Q, N, plan.stages)
+    assert plan.smem_bytes <= SMEM_PER_BLOCK
+
+
+def test_ssd_plan_at_the_serve_shape():
+    """mamba2-130m's single-shot prefill (B 1, one 64-token chunk, 24
+    heads of 64, N 128): P / 16 CTAs a head, where the old kernel ran one,
+    every one of them in the first wave (two fit an SM)."""
+    plan = common.ssd_plan(1, 64, 24, 64, 1, 128, 64, torch.bfloat16)
+    assert plan.grid == (4, 24, 1) and plan.stages == 2
+    per_sm = common.SMEM_PER_SM // (plan.smem_bytes + 1024)
+    assert per_sm >= 2 and plan.grid[0] * 24 <= common.H100_SMS * per_sm
+
+
+def test_ssd_plan_reads_shapes_only():
+    params = inspect.signature(common.ssd_plan).parameters
+    assert list(params) == ["B", "L", "H", "P", "G", "N", "Q", "dtype"]
+
+
+def _old_kernel_took(Q, N, P):
+    """The CUDA-core SSD kernel this one replaced (``_fits`` and
+    ``_shared_bytes`` of its wrapper): chunk and P multiples of 4, at most
+    16 rows of each product a thread of 256, every array f32 in 227 KB."""
+    def fits(rows, cols):
+        if cols % 4 or cols // 4 > 256:
+            return False
+        return -(-rows // (256 // (cols // 4))) <= 16
+    smem = 4 * (Q * P + N * P + N * (Q + 4) + Q * (N + 1) + Q * (Q + 1)
+                + 2 * Q)
+    return fits(Q, Q) and fits(Q, P) and fits(N, P) and smem <= 232448
+
+
+@pytest.mark.parametrize("dtype,max_state", [(torch.bfloat16, 256),
+                                             (torch.float32, 160)])
+def test_ssd_plan_takes_what_the_old_kernel_took(dtype, max_state):
+    """Every (chunk, d_state, P) the replaced kernel took, up to d_state
+    ``max_state``, has a plan (f32 above 160 only at small chunks: its
+    two copies of B and C a chunk)."""
+    taken = 0
+    for Q in range(4, 129, 4):
+        for N in (*range(1, 33), *range(40, max_state + 1, 8)):
+            for P in (4, 8, 12, 16, 24, 32, 48, 64, 96, 128, 256):
+                if _old_kernel_took(Q, N, P):
+                    common.ssd_plan(1, Q, 1, P, 1, N, Q, dtype)
+                    taken += 1
+    assert taken > 10000
+
+
+@pytest.mark.parametrize("B,L,H,P,G,N,Q,dtype", [
+    (1, 256, 4, 64, 1, 128, 256, torch.bfloat16),   # chunk over 128
+    (1, 128, 4, 64, 1, 512, 128, torch.float32),    # one stage over 227 KB
+    (1, 100, 4, 64, 1, 128, 64, torch.bfloat16),    # L % chunk
+    (1, 64, 6, 64, 4, 128, 64, torch.bfloat16),     # H % G
+    (1, 64, 4, 64, 1, 128, 64, torch.float16),      # dtype
+    (1, 64, 4, 64, 1, 0, 64, torch.bfloat16),       # d_state 0
+    (0, 64, 4, 64, 1, 128, 64, torch.bfloat16),
+    (1, 64, 4, 0, 1, 128, 64, torch.bfloat16)])
+def test_ssd_plan_refuses_what_the_kernel_does_not_take(B, L, H, P, G, N, Q,
+                                                        dtype):
+    with pytest.raises(ValueError):
+        common.ssd_plan(B, L, H, P, G, N, Q, dtype)

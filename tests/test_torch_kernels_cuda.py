@@ -14,10 +14,17 @@ rtol = 2e-2 (both sides accumulate in f32 from the same bf16 inputs and
 round the output to bf16, one ulp of which is 2^-8 near 1; the
 tensor-core kernels also round the probabilities to bf16).  The SSD scan
 in float32 is held to atol = rtol = 5e-4, the JAX kernel test's own
-tolerance: its sums run over up to 128 + 64 terms of unit-normal inputs,
-and at L 2048 one element of 3.1 M that nearly cancels differed by
-1.03e-4 (measured on an H100).  Its final state is f32 whatever x's dtype
-and held to that tolerance too.
+tolerance: its sums run over up to 128 + 64 terms of unit-normal inputs
+through up to 32 chunks, in the tensor cores' f32 accumulators, which do
+not round to nearest.  Its final state is f32 whatever x's dtype and held
+to that tolerance too.
+
+The SSD cases cover the kernel's slices of P (P 8, 16, 24, 32, 64), rows
+that go through registers with every dimension padded (chunk 4, N 5, P
+6), chunks of 100 and 128 rows (two row tiles a y warp, two key
+segments), d_state 256, one stage where two do not fit (f32 at chunk 128
+or d_state 256), and a CUDA-graph replay; the int8 prefill cases GQA
+groups 1-64, D 64-128 and a 4 x 2048-token prefix.
 """
 import numpy as np
 import pytest
@@ -174,15 +181,32 @@ def test_paged_decode_quant_kernel_matches_plain(dev, dtype, H, KVH, D, bs):
     assert torch.count_nonzero(out[-1]) == 0
 
 
+# (H, KVH, D, bs, C, starts, valid); starts/valid None: an empty prefix,
+# prefixes past and inside pages, a valid == 0 row.  GQA groups 1, 3, 4,
+# 8 and 64 at head_dim 64, 80 and 128; prefixes of 63-65 tokens around
+# the 64-key tiles and ending mid-page; 8-token pages (their 16-byte bf16
+# scale pieces hold 8 keys); a 4 x 2048-token prefix (32 tiles a CTA)
+PREFILL_QUANT_CASES = [
+    (32, 8, 64, 16, 32, None, None),
+    (32, 8, 80, 16, 128, None, None),
+    (6, 2, 128, 16, 100, None, None),
+    (8, 8, 64, 16, 32, [0, 63, 64, 65], [32, 32, 0, 17]),
+    (16, 4, 80, 8, 64, [5, 64, 130, 1], [64, 40, 64, 1]),
+    (64, 8, 128, 16, 17, [16, 300, 0], [17, 3, 9]),
+    (64, 1, 64, 16, 17, [16, 40], [17, 3]),
+    (32, 8, 64, 16, 128, [2048, 2048, 2048, 2048], [128, 128, 100, 128]),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,KVH,D,bs,C", [(32, 8, 64, 16, 32),
-                                           (32, 8, 80, 16, 128),
-                                           (6, 2, 128, 16, 100)])
+@pytest.mark.parametrize("H,KVH,D,bs,C,starts,valid", PREFILL_QUANT_CASES)
 def test_paged_prefill_quant_kernel_matches_plain(dev, dtype, H, KVH, D, bs,
-                                                  C):
+                                                  C, starts, valid):
     rng = np.random.default_rng(4)
-    starts = np.array([0, 21, 2 * bs, 300, 7], np.int32)
-    valid = np.array([C, C, C // 2 + 3, 0, C - 5], np.int32)
+    starts = np.array([0, 21, 2 * bs, 300, 7] if starts is None else starts,
+                      np.int32)
+    valid = np.array([C, C, C // 2 + 3, 0, C - 5] if valid is None
+                     else valid, np.int32)
     B = len(starts)
     nb = -(-(int(starts.max()) + C) // bs)
     N = 2 * B * nb
@@ -203,6 +227,8 @@ def test_paged_prefill_quant_kernel_matches_plain(dev, dtype, H, KVH, D, bs,
     for b, n in enumerate(valid):
         torch.testing.assert_close(out[b, :, :n].float(),
                                    want[b, :, :n].float(), **TOL[dtype])
+        if n == 0:                       # an inactive row reads nothing
+            assert torch.count_nonzero(out[b]) == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -445,14 +471,29 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(dev):
 
 # (B, L, H, P, G, N, chunk): the JAX kernel tests' shapes (G > 1 in the
 # third), mamba2-130m's serving prefill (one chunk), a long prefill, a
-# batch, and zamba2's SSM widths (64 heads, N 64)
+# batch, and zamba2's SSM widths (64 heads, N 64); then the kernel's
+# P-slice edges: P 8 (one slice), 16, 32 and 64 at mamba2's N and chunk,
+# P 24 (a last slice half full), and ragged widths whose rows go through
+# registers and whose chunk, state and slice all pad (Q 4, N 5, P 6); then
+# chunks over 64 rows (zamba2's widths at 128; a ragged 100) and d_state 256,
+# which in f32 take the one-stage layout
 SSD_SHAPES = {"(1,64,2,16,1,8,16)": (1, 64, 2, 16, 1, 8, 16),
               "(2,128,4,32,2,16,32)": (2, 128, 4, 32, 2, 16, 32),
               "groups (1,32,8,8,4,4,8)": (1, 32, 8, 8, 4, 4, 8),
               "mamba2 L64": (1, 64, 24, 64, 1, 128, 64),
               "mamba2 L2048": (1, 2048, 24, 64, 1, 128, 64),
               "mamba2 B4 L512": (4, 512, 24, 64, 1, 128, 64),
-              "zamba2 widths": (1, 256, 64, 64, 1, 64, 64)}
+              "zamba2 widths": (1, 256, 64, 64, 1, 64, 64),
+              "P8": (1, 192, 4, 8, 1, 128, 64),
+              "P16": (2, 128, 3, 16, 1, 128, 64),
+              "P32": (1, 128, 2, 32, 1, 128, 64),
+              "P64 G2": (1, 128, 4, 64, 2, 128, 64),
+              "P24": (1, 96, 2, 24, 1, 32, 32),
+              "ragged (1,24,3,6,1,5,4)": (1, 24, 3, 6, 1, 5, 4),
+              "zamba2 chunk 128": (1, 256, 64, 64, 1, 64, 128),
+              "chunk 128 N128": (1, 256, 4, 64, 1, 128, 128),
+              "ragged chunk 100": (1, 200, 2, 24, 1, 40, 100),
+              "N256": (1, 128, 4, 64, 1, 256, 64)}
 
 
 def _ssd_inputs(rng, B, L, H, P, G, N, dtype, dev):
@@ -488,8 +529,38 @@ def test_ssd_scan_kernel_matches_plain(dev, dtype, with_state, shape):
     torch.testing.assert_close(h, want_h, **SSD_TOL[torch.float32])
 
 
+def test_ssd_scan_replays_in_a_cuda_graph(dev):
+    """The serving prefill's call (state in and out) captured once and
+    replayed on new inputs copied into the captured buffers."""
+    rng = np.random.default_rng(13)
+    B, L, H, P, G, N, chunk = SSD_SHAPES["mamba2 L64"]
+    args = list(_ssd_inputs(rng, B, L, H, P, G, N, torch.bfloat16, dev))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ss.ssd_scan(*args[:5], chunk, args[5], return_state=True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = ss.launches
+    with torch.cuda.graph(graph):
+        y, h = ss.ssd_scan(*args[:5], chunk, args[5], return_state=True)
+    assert ss.launches == before + 1           # a capture counts once
+    for seed in range(3):
+        new = _ssd_inputs(np.random.default_rng(20 + seed), B, L, H, P, G, N,
+                          torch.bfloat16, dev)
+        for buf, val in zip(args, new):
+            buf.copy_(val)
+        graph.replay()
+        torch.cuda.synchronize()
+        want_y, want_h = ss.ssd_scan_plain(*args[:5], chunk, args[5],
+                                           return_state=True)
+        torch.testing.assert_close(y.float(), want_y.float(),
+                                   **SSD_TOL[torch.bfloat16])
+        torch.testing.assert_close(h, want_h, **SSD_TOL[torch.float32])
+
+
 def test_ssd_scan_wrapper_refuses_what_the_kernel_does_not_take(dev):
-    x, dt, A, Bm, Cm, init = _ssd_inputs(np.random.default_rng(10), 1, 32,
+    x, dt, A, Bm, Cm, init = _ssd_inputs(np.random.default_rng(10), 1, 128,
                                          4, 16, 1, 8, torch.float32, dev)
     with pytest.raises(TypeError):         # x, Bm, Cm share one dtype
         ss.ssd_scan(x.half(), dt, A, Bm.half(), Cm.half(), 16)
@@ -500,10 +571,13 @@ def test_ssd_scan_wrapper_refuses_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError):
         ss.ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A,
                     Bm, Cm, 16)
-    with pytest.raises(ValueError):        # chunk not a multiple of 4
-        ss.ssd_scan(x, dt, A, Bm, Cm, 2)
-    with pytest.raises(ValueError):        # P not a multiple of 4
-        ss.ssd_scan(x[..., :6].contiguous(), dt, A, Bm, Cm, 16)
+    long = _ssd_inputs(np.random.default_rng(11), 1, 256, 4, 16, 1, 8,
+                       torch.float32, dev)
+    with pytest.raises(ValueError):        # chunks of at most 128 rows
+        ss.ssd_scan(*long[:5], 256)
+    wide = torch.zeros(1, 128, 1, 512, device=dev)
+    with pytest.raises(ValueError):        # one f32 stage over 227 KB
+        ss.ssd_scan(x, dt, A, wide, wide, 128)
     with pytest.raises(ValueError):
         ss.ssd_scan(x, dt, A.cpu(), Bm, Cm, 16)
     with pytest.raises(RuntimeError, match="no gradient"):
