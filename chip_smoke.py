@@ -103,7 +103,28 @@ Phases, in order; any failure exits non-zero before the result lines:
      a 300-token prompt and a second one sharing its first 256 tokens (a
      prefix hit: prefill chunks start past the shared pages), plus a
      copy-on-write page copy of a forked tail block;
-  7. reference phase: reduced models in float32 on the card and on the
+  7. drivers phase, on the same full-width granite-3-2b (bf16,
+     ``paged-cuda``), each part with the launch counts set to 0 just
+     before and read just after (the two float paged kernels, and no
+     other, must launch): a. ``AsyncServer`` over ``async_serve``'s
+     cluster of two engines sharing the weights, 32 requests of the
+     three classes at 8/s plus 4 sessions of 3 turns, queue depth 16,
+     shedding by deferral, one client cancelling mid-decode: every
+     request terminal, every stream carrying its request's tokens, no
+     page leaked, a prefix hit; attainment and TTFT p50/p99 per class,
+     rejections, sheds and cancellations printed; b. ``serve.run_threaded``
+     against ``serve.run_round_robin`` on one seed, two engines each:
+     every request terminal, no page leaked, tokens/s of each, tokens
+     equal across them; c. ``chaos`` ``combined`` (3 engines, virtual
+     clock) with ``check_soak``'s no-fault baseline and replay: the
+     planned hang and crash landed, nothing stranded or leaked on any
+     engine, the dead and replaced ones included, at least one
+     replacement and one migration, an identical replay, interactive
+     attainment at least 0.5, ``memory_allocated`` before and after
+     printed.  Tokens may part between two runs only at a near tie: the
+     two tokens the best two of the logits recomputed alone, within the
+     bf16 tolerance (``check_partings``, printed with the gap);
+  8. reference phase: reduced models in float32 on the card and on the
      CPU (the kernels' plain versions) with the same weights must give the
      same greedy tokens through chunked prefill, evict/resume and decode
      bursts: granite on the page pool (with prefix sharing), granite on
@@ -113,7 +134,7 @@ Phases, in order; any failure exits non-zero before the result lines:
      a near tie (``near_tie_parting``); so may mamba2 (dense backend,
      single-shot prefill through the SSD kernel on the card), whose
      float logits are checked the same way;
-  8. training phase, through ``repro_torch.launch.train.train`` with
+  9. training phase, through ``repro_torch.launch.train.train`` with
      ``use_pallas_attention`` set, float32, launch counts set to 0 just
      before and read just after: 3 steps of full-width granite-3-2b
      (batch 2, seq 512, remat) with finite losses and exactly 2 flash
@@ -121,7 +142,7 @@ Phases, in order; any failure exits non-zero before the result lines:
      its step times and peak memory; one step of the same weights and
      batch with the flag off (step-0 loss within 1e-4 relative, gradient
      norm within 1e-3); one full-width step of h2o-danube-1.8b (D 80);
-  9. training reference phase: reduced granite and h2o-danube (window 64,
+ 10. training reference phase: reduced granite and h2o-danube (window 64,
      seq 128) trained 3 steps on the card (the kernel) and on the CPU (the
      plain version) from the same weights and data: losses and final
      params within 1e-4.
@@ -1275,6 +1296,287 @@ def long_prompt_phase(model, params) -> None:
     check(eng.block_mgr.used_blocks == 0, "KV blocks leaked")
 
 
+# ---------------------------------------------------------------------------
+# drivers: the async front end, the threaded cluster, the chaos soak
+# ---------------------------------------------------------------------------
+
+PAGED_FLOAT = ("paged_decode_attention", "paged_prefill_attention")
+
+
+def _expect_launches(label: str, launches: dict) -> None:
+    check(all(launches[k] > 0 for k in PAGED_FLOAT)
+          and not any(n for k, n in launches.items()
+                      if k not in PAGED_FLOAT),
+          f"{label}: expected launches of {PAGED_FLOAT} only, got "
+          f"{launches}")
+
+
+def _terminal(r) -> bool:
+    return r.finished() or r.dropped()
+
+
+def _pct(xs, q):
+    return float(np.percentile(xs, q)) if xs else None
+
+
+def parting(model, params, prompt, got, want):
+    """Where two token streams of one prompt part, None if nowhere:
+    (index, the two tokens' logits and the row's two best tokens), the
+    logits recomputed alone (one slot, the whole history in one prefill,
+    over the real vocab)."""
+    from repro_torch.core.request import Request
+    from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
+
+    j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    if j is None:
+        return None
+    calls = []
+    eng = ContinuousBatchingEngine(_recording(model, calls), params,
+                                   EngineConfig(
+                                       max_slots=1, max_seq_len=256,
+                                       dtype=params["embed"].dtype,
+                                       device=str(params["embed"].device)),
+                                   model_name="m")
+    r = Request(prompt_tokens=list(prompt) + list(want[:j]), model="m",
+                slo=1e9, max_new_tokens=1)
+    check(eng.admit(r), "parting: history not admitted")
+    while not r.finished():
+        eng.step()
+    row = calls[-1][0][:model.cfg.vocab_size]
+    return (j, float(row[got[j]]), float(row[want[j]]),
+            row.topk(2).indices.tolist())
+
+
+def check_partings(label, model, params, pairs) -> list:
+    """``pairs``: (prompt, tokens, tokens) of one request in two runs,
+    which saw it in batches of other sizes, whose products round
+    differently.  Where two runs part, the two tokens must be the best
+    two of the recomputed row, their logits apart by no more than the
+    weights' dtype's kernel tolerance (``TOL``: atol + rtol x the larger
+    logit): a near tie.  Each parting is logged with its gap.  Returns
+    the partings."""
+    tol = TOL[params["embed"].dtype]
+    found = []
+    for prompt, got, want in pairs:
+        p = parting(model, params, prompt, got, want)
+        if p is None:
+            continue
+        j, l_got, l_want, best2 = p
+        gap = abs(l_got - l_want)
+        bound = tol["atol"] + tol["rtol"] * max(abs(l_got), abs(l_want))
+        log(f"  [{label}] tokens part at {j} of {len(want)}: tokens "
+            f"{got[j]} / {want[j]}, logits {l_got:.4f} / {l_want:.4f}, gap "
+            f"{gap:.4f} (near-tie bound {bound:.4f}), best two {best2}")
+        check(sorted(best2) == sorted((got[j], want[j])) and gap <= bound,
+              f"{label}: tokens part at {j} and it is not a near tie")
+        found.append(p)
+    return found
+
+
+def drivers_async(registry) -> None:
+    """The async front end (``AsyncServer``) over ``async_serve``'s cluster
+    of two engines sharing one set of weights: the 32 requests of
+    ``async_serve.build_requests`` (interactive and batch classes) at 8/s
+    and 4 sessions of 3 turns (later turns carry the conversation as a
+    prefix), queue depth 16, shedding by deferral, and one client that
+    cancels mid-decode.  Every client reads its stream."""
+    import asyncio
+
+    from repro_torch.core.request import SLO_CLASSES
+    from repro_torch.data.workload import SessionSpec, generate_sessions
+    from repro_torch.launch import async_serve
+    from repro_torch.launch.serve import calibrate_registry, engine_config
+    from repro_torch.serving import AsyncServer, FrontendConfig, run_session
+
+    args = argparse.Namespace(**{
+        **vars(SERVE_ARGS), "backend": "paged-cuda", "instances": 2,
+        "requests": 32, "rate": 8.0, "batch_new_tokens": 16,
+        "slo_scale": 1.0, "reschedule_cooldown": 0.5})
+    names = list(registry)
+    np.random.seed(0)                # calibrate_from_engine's prompts
+    hw = calibrate_registry(registry, engine_config(
+        args, registry[names[0]][1]["embed"].dtype))
+    engines, agents, _, controller = async_serve.build_cluster(
+        args, registry, hw, names)
+    server = AsyncServer(controller, agents, FrontendConfig(
+        queue_depth=16, shed_policy="defer",
+        interactive_slo_ceiling=SLO_CLASSES["interactive"]))
+    pairs = async_serve.build_requests(args, names)
+    victim = next(r for r, _ in pairs if r.slo_class != "interactive")
+    sessions = generate_sessions(SessionSpec(
+        n_sessions=4, turns=3, seed=0, model=names[0],
+        slo_class="interactive", arrival_rate=2.0, think_time_s=0.05,
+        max_new_tokens=16, vocab=100))
+    streamed = {}
+
+    async def client(req, offset):
+        req.arrival_time = t_start + offset
+        await asyncio.sleep(max(0.0, req.arrival_time - time.monotonic()))
+        stream = await server.submit(req)
+        got = streamed.setdefault(id(req), [])
+        async for tok in stream:
+            got.append(tok)
+            if req is victim and len(got) == 3:
+                stream.cancel()                  # mid-decode
+
+    async def session(s):
+        await asyncio.sleep(max(0.0, s.arrival_time - time.monotonic()))
+        await run_session(server, s)
+
+    async def go():
+        async with server:
+            tasks = [client(r, off) for r, off in pairs]
+            for s in sessions:
+                s.arrival_time += t_start
+                tasks.append(session(s))
+            await asyncio.wait_for(asyncio.gather(*tasks), 120.0)
+            await asyncio.wait_for(server.drain(), 120.0)
+
+    reset_launches()
+    t_start = time.monotonic()
+    asyncio.run(go())
+    wall = time.monotonic() - t_start
+    launches = read_launches()
+    reqs = [r for r, _ in pairs]
+    turns = [r for s in sessions for r in s.requests]
+    now = time.monotonic()
+    fs = server.stats
+    log(f"  [async] {len(reqs)} requests + {len(turns)} session turns in "
+        f"{wall:.2f} s: accepted {fs.accepted}, rejected {fs.rejected} "
+        f"(backpressure {fs.rejected_backpressure}), expired {fs.expired}, "
+        f"cancelled {fs.cancelled}, shed deferred {fs.shed_deferred} / "
+        f"dropped {fs.shed_dropped}, max queue depth {fs.max_queue_depth}, "
+        f"tokens streamed {fs.tokens_streamed}; prefix hits "
+        f"{sum(e.stats.prefix_hits for e in engines)}; launches "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    for cls in async_serve.CLASSES:
+        ttfts = [r.ttft() for r in reqs + turns
+                 if r.slo_class == cls and r.ttft() is not None]
+        log(f"  [async] {cls}: attainment "
+            f"{async_serve.class_attainment(reqs + turns, cls, now):.3f}, "
+            f"served {len(ttfts)}, TTFT p50 {_pct(ttfts, 50)} s, p99 "
+            f"{_pct(ttfts, 99)} s")
+    check(all(_terminal(r) for r in reqs + turns),
+          "async: a request is not terminal")
+    check(len(turns) >= len(sessions), "async: a session sent no turn")
+    check(all(streamed[id(r)] == list(r.output_tokens) for r in reqs),
+          "async: a stream's tokens differ from the request's")
+    check(victim.cancelled and fs.cancelled >= 1,
+          "async: the client's cancellation did not land")
+    check(all(e.block_mgr.used_blocks == 0 for e in engines),
+          "async: KV blocks leaked")
+    check(sum(e.stats.prefix_hits for e in engines) > 0,
+          "async: no session turn hit the prefix cache")
+    _expect_launches("async", launches)
+
+
+def drivers_compare(registry) -> None:
+    """``serve.run_threaded`` against ``serve.run_round_robin`` on one seed,
+    two engines each: every request terminal, no block leaked, and each
+    request's tokens equal across the drivers but at near ties."""
+    from repro_torch.launch import serve
+
+    args = argparse.Namespace(**{
+        **vars(SERVE_ARGS), "backend": "paged-cuda", "instances": 2,
+        "requests": 16, "rate": 8.0})
+    runs = {}
+    for threaded in (True, False):
+        args.threaded = threaded
+        np.random.seed(0)            # calibrate_from_engine's prompts
+        reset_launches()
+        stats, reqs, engines = serve.run_once(args, registry, list(registry))
+        launches = read_launches()
+        label = stats["driver"]
+        log(f"  [drivers] {label}: served {stats['served']} of "
+            f"{stats['requests']}, {stats['tokens']} tokens, tokens/s "
+            f"{stats['tokens_per_s']:.2f}, mean TTFT {stats['mean_ttft_s']} "
+            f"s, engine rounds {stats.get('engine_rounds')}, controller "
+            f"ticks {stats.get('controller_ticks')}; launches "
+            f"{ {k: n for k, n in launches.items() if n} }")
+        check(all(_terminal(r) for r in reqs),
+              f"{label}: a request is not terminal")
+        check(all(e.block_mgr.used_blocks == 0 for e in engines),
+              f"{label}: KV blocks leaked")
+        _expect_launches(label, launches)
+        runs[label] = (stats, reqs)
+    (t_stats, t_reqs), (r_stats, r_reqs) = runs["threaded"], \
+        runs["round-robin"]
+    log(f"  [drivers] tokens/s threaded {t_stats['tokens_per_s']:.2f} vs "
+        f"round-robin {r_stats['tokens_per_s']:.2f} "
+        f"({t_stats['tokens_per_s'] / r_stats['tokens_per_s']:.3f}x)")
+    model, params = registry[GRANITE]
+    both = [(a.prompt_tokens, a.output_tokens, b.output_tokens)
+            for a, b in zip(t_reqs, r_reqs)
+            if a.output_tokens and b.output_tokens]
+    check(bool(both), "drivers: no request served by both drivers")
+    found = check_partings("drivers", model, params, both)
+    log(f"  [drivers] {len(both)} of {len(t_reqs)} requests served by both "
+        f"drivers compared, {len(found)} part")
+
+
+def drivers_chaos(registry) -> None:
+    """``chaos`` scenario ``combined`` (3 engines, virtual clock) at full
+    width with ``check_soak``'s contract: the no-fault baseline and the
+    replay.  Outputs may part from the baseline's only at near ties."""
+    from repro_torch.launch import chaos
+
+    args = argparse.Namespace(
+        arch=GRANITE, instances=3, requests=24, rate=8.0, max_new_tokens=12,
+        slots=4, seed=0, device=SERVE_ARGS.device, scenario="combined",
+        plan_file=None,
+        site="decode", kill_engine=1, kill_at=4, error_prob=0.0,
+        hang_engine=0, hang_at=6, hang_grace=None, drain_engine=None,
+        drain_at_round=None, drain_evict=False, replace_cooldown=0.5,
+        shared_prefix=None, retry_budget=2, round_dt=0.05, max_rounds=3000,
+        threaded=False, hetero=False, routing="solver", max_wall=60.0,
+        attainment_floor=0.5, no_supervision=False, replay_check=True)
+    gc.collect()
+    mem0 = torch.cuda.memory_allocated()
+    reset_launches()
+    t0 = time.monotonic()
+    stats = chaos.run_soak(args, registry=registry)
+    failures = chaos.check_soak(args, stats, registry)
+    wall = time.monotonic() - t0
+    launches = read_launches()
+    gc.collect()
+    mem1 = torch.cuda.memory_allocated()
+    log("  [chaos] " + json.dumps({k: v for k, v in stats.items() if k not in
+                                   ("timeline", "outputs",
+                                    "baseline_outputs")}))
+    log(f"  [chaos] 3 soaks (faults, no-fault baseline, replay) in "
+        f"{wall:.2f} s; timeline {len(stats['timeline'])} events; launches "
+        f"{ {k: n for k, n in launches.items() if n} }; "
+        f"memory_allocated {mem0} -> {mem1} bytes")
+    parted = failures.pop("baseline", None)
+    check(not failures, f"chaos: {failures}")
+    planned = {(args.hang_engine, "hang"), (args.kill_engine, "crash")}
+    check({(e["engine"], e["kind"]) for e in stats["timeline"]} == planned
+          and stats["engine_failures"] >= 1 and stats["hangs"] >= 1,
+          f"chaos: the planned faults {planned} did not land: "
+          f"{stats['timeline']}")
+    check(stats["replacements"] >= 1 and stats["migrations"] >= 1,
+          "chaos: no replacement or no migration")
+    check(stats.get("replay_identical") is True, "chaos: replay differs")
+    _expect_launches("chaos", launches)
+    if parted is not None:
+        log(f"  [chaos] {parted}")
+        base = stats["baseline_outputs"]
+        prompts = [r.prompt_tokens for r in chaos.build_requests(args)]
+        common = sorted(set(stats["outputs"]) & set(base), key=int)
+        check(bool(common), f"chaos: {parted}")
+        model, params = registry[GRANITE]
+        check_partings("chaos", model, params, [
+            (prompts[int(i)], stats["outputs"][i], base[i]) for i in common])
+
+
+def drivers_phase(model, params) -> None:
+    registry = {GRANITE: (model, params)}
+    for part in (drivers_async, drivers_compare, drivers_chaos):
+        t0 = time.monotonic()
+        part(registry)
+        log(f"  [drivers] {part.__name__} in {time.monotonic() - t0:.1f} s")
+
+
 LOGIT_TOL = 1e-3
 
 
@@ -1783,6 +2085,11 @@ def main() -> int:
     t0 = time.monotonic()
     long_prompt_phase(g_model, g_params)
     log(f"[long-prompt] ok in {time.monotonic() - t0:.1f} s")
+
+    log("[drivers] async front end, threaded vs round-robin, chaos soak")
+    t0 = time.monotonic()
+    drivers_phase(g_model, g_params)
+    log(f"[drivers] ok in {time.monotonic() - t0:.1f} s")
     # the serve loop's last registry holds both models' weights too
     del models, registry, g_params, d_params, m_params
     torch.cuda.empty_cache()

@@ -15,11 +15,21 @@ kernel); the page pool refuses mamba2, as the reference's does.
       --arch2 h2o-danube-1.8b          # two models: the swap LSO
   PYTHONPATH=src python -m repro_torch.launch.serve --backend cuda \
       --arch mamba2-130m               # an SSM (--arch2 mamba2-130m: swaps)
+  PYTHONPATH=src python -m repro_torch.launch.serve --threaded \
+      --instances 2                    # one thread per engine
+  PYTHONPATH=src python -m repro_torch.launch.serve --compare-drivers \
+      --instances 2                    # threaded AND round-robin, one seed
 
 The registry holds the reduced config of each arch, as the reference CLI
-does (``src/repro/launch/serve.py``); ``--routing`` and
-``--compare-routing`` work as there.  ``--threaded`` and ``--hetero`` are
-not ported yet.
+does (``src/repro/launch/serve.py``); ``--threaded``, ``--routing``,
+``--compare-drivers`` and ``--compare-routing`` work as there.  Under
+``--threaded`` the engines of one card issue their kernels from their own
+threads onto the device's one stream, so they run one after another on
+the card, and each engine's ``prefill_time`` / ``decode_time`` (which end
+in a device-wide synchronise) include the work its neighbours queued
+meanwhile.  Both drivers calibrate the profiles before the wall clock
+starts, which also builds and loads the kernels the engines run.
+``--hetero`` is not ported (it needs the sharding rules).
 """
 from __future__ import annotations
 
@@ -38,7 +48,8 @@ from repro_torch.core.request import make_request
 from repro_torch.core.virtual_queue import VirtualQueue
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
-from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
+from repro_torch.serving import (ContinuousBatchingEngine, EngineConfig,
+                                 ThreadedCluster)
 from repro_torch.sim.profiles import calibrate_from_engine
 
 
@@ -191,6 +202,38 @@ def run_round_robin(args, registry, arch_names):
     return stats, reqs, engines
 
 
+def run_threaded(args, registry, arch_names):
+    """Thread-per-engine loop: the main thread plays open-loop client
+    (submitting on the wall-clock arrival schedule) while every engine
+    decodes on its own thread and the controller ticks on its own.
+    Returns ``(stats, requests, engines)``."""
+    engines, agents, infos, controller = build_cluster(args, registry,
+                                                       arch_names)
+    cluster = ThreadedCluster(controller, agents, engines)
+    t_start = time.monotonic()
+    reqs = build_workload(args, arch_names, t_start)
+    cluster.start()
+    try:
+        for r in reqs:
+            time.sleep(max(0.0, r.arrival_time - time.monotonic()))
+            controller.submit(r, time.monotonic())
+        cluster.wait(lambda: all(_terminal(r) for r in reqs),
+                     timeout=args.max_wall)
+    finally:
+        cluster.stop()
+    stats = summarize(reqs, controller, engines, t_start, time.monotonic())
+    stats["driver"] = "threaded"
+    stats["routing"] = controller.cfg.routing
+    stats["engine_rounds"] = list(cluster.rounds)
+    stats["controller_ticks"] = cluster.ticks
+    return stats, reqs, engines
+
+
+def run_once(args, registry, arch_names):
+    run = run_threaded if args.threaded else run_round_robin
+    return run(args, registry, arch_names)
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="granite-3-2b")
@@ -218,7 +261,7 @@ def main(argv=None) -> dict:
                     help="refcounted shared-prefix KV pages")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--threaded", action="store_true",
-                    help="thread-per-engine serve loop (not ported)")
+                    help="thread-per-engine serve loop (ThreadedCluster)")
     ap.add_argument("--hetero", action="store_true",
                     help="heterogeneous capacity tiers (not ported)")
     ap.add_argument("--routing", default="solver",
@@ -229,26 +272,30 @@ def main(argv=None) -> dict:
                          "round/tick")
     ap.add_argument("--max-wall", type=float, default=180.0,
                     help="wall-clock bound per run")
+    ap.add_argument("--compare-drivers", action="store_true",
+                    help="run threaded AND round-robin same-seed")
     ap.add_argument("--compare-routing", action="store_true",
                     help="run slice AND solver routing same-seed")
     ap.add_argument("--json", default=None, help="write final stats JSON")
     args = ap.parse_args(argv)
-    if args.threaded:
-        raise NotImplementedError(
-            "--threaded needs serving/cluster.py and serving/faults.py, "
-            "which are not ported yet")
 
     arch_names = [args.arch] + ([args.arch2] if args.arch2 else [])
     registry = build_registry(arch_names, args.seed, args.device)
 
     out = {}
-    if args.compare_routing:
+    if args.compare_drivers:
+        for threaded in (True, False):
+            a = argparse.Namespace(**vars(args))
+            a.threaded = threaded
+            out["threaded" if threaded else "round-robin"] = \
+                run_once(a, registry, arch_names)[0]
+    elif args.compare_routing:
         for routing in ("slice", "solver"):
             a = argparse.Namespace(**vars(args))
             a.routing = routing
-            out[routing] = run_round_robin(a, registry, arch_names)[0]
+            out[routing] = run_once(a, registry, arch_names)[0]
     else:
-        out["run"] = run_round_robin(args, registry, arch_names)[0]
+        out["run"] = run_once(args, registry, arch_names)[0]
 
     for name, st in out.items():
         if len(out) > 1:
@@ -256,6 +303,11 @@ def main(argv=None) -> dict:
         for k, v in st.items():
             print(f"{k:18s} {v:.3f}" if isinstance(v, float)
                   else f"{k:18s} {v}")
+    if args.compare_drivers:
+        t, rr = out["threaded"]["tokens_per_s"], \
+            out["round-robin"]["tokens_per_s"]
+        print(f"tokens/s           threaded {t:.1f} vs round-robin {rr:.1f} "
+              f"({t / max(rr, 1e-9):.2f}x)")
     if args.compare_routing:
         print(f"attainment         slice "
               f"{out['slice']['slo_attainment']:.3f} vs solver "

@@ -34,7 +34,13 @@ changed is the compute:
     moves, from a copy of the manager's table, which it mutates in place;
   * timed regions end in ``torch.cuda.synchronize`` on a CUDA device, so
     ``prefill_time`` / ``decode_time`` (and the RWT calibration built on
-    them) measure compute, not launch;
+    them) measure compute, not launch.  The synchronise waits for the
+    whole device: when several engines share one card from their own
+    threads (``serving.cluster.ThreadedCluster``), each issues its kernels
+    onto the device's one stream (the split-KV decode kernels' arrival
+    counters assume it), so a timed region also holds the work the other
+    engines queued meanwhile, as the reference's engines on one device run
+    their programs one after another;
   * ``steps(k)`` runs the burst as a host loop over device-side finish
     flags with the reference's ``lax.while_loop`` rules and one host sync
     per burst: the host caps the burst at the largest number of tokens any
@@ -262,7 +268,8 @@ class ContinuousBatchingEngine:
                                      self.cfg.dtype, self.device)
 
     def _sync(self) -> None:
-        """Wait for the device: ends every timed region."""
+        """Wait for the device (all of it, other engines' work included):
+        ends every timed region."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 

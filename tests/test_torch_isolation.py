@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``repro_torch`` and not
 ``chip_smoke.py`` imports JAX or the reference package; the plain-Python
-modules it copies stay equal to their reference sources; and its entry
+modules it copies stay equal to their reference sources (after the import
+rewrite and the rewordings listed in ``REWORDED``); and its entry
 points refuse to fall back to the CPU when CUDA is missing."""
 import ast
 import os
@@ -24,12 +25,27 @@ COPIES = ["configs/base.py", "configs/granite_3_2b.py",
           "core/request_group.py", "core/solver.py", "core/virtual_queue.py",
           "core/global_scheduler.py", "core/routing.py", "core/qlm.py",
           "core/lso.py", "serving/kv_cache.py", "analysis/invariants.py",
-          "training/data_pipeline.py"]
+          "training/data_pipeline.py", "core/autoscale.py",
+          "serving/faults.py", "serving/cluster.py", "serving/frontend.py",
+          "data/__init__.py", "data/sharegpt_synth.py", "data/workload.py",
+          "serving/__init__.py"]
 
 
 def _rewrite(src: str) -> str:
     return re.sub(r"^(\s*)(from|import) repro\.", r"\1\2 repro_torch.", src,
                   flags=re.M)
+
+
+# copies whose reference text numbers the reference's own change
+# requests: the port's copy words those notes without the numbers and is
+# otherwise equal (each pattern must match exactly once in the reference)
+REWORDED = {
+    "core/autoscale.py": [(r"\(the PR \d+ ``--admit-drain slo``",
+                           "(the ``--admit-drain slo``")],
+    "serving/faults.py": [(r"the pool-reset path PR \d+ gates;",
+                           "the gated pool-reset path;")],
+    "serving/frontend.py": [(r"PR \d+'s prefix index", "the prefix index")],
+}
 
 
 def _imported_roots(path: pathlib.Path):
@@ -66,7 +82,11 @@ def test_importing_every_module_loads_no_jax():
 
 @pytest.mark.parametrize("rel", COPIES)
 def test_copied_module_equals_its_reference(rel):
-    assert (PORT / rel).read_text() == _rewrite((REF / rel).read_text())
+    ref = _rewrite((REF / rel).read_text())
+    for pattern, words in REWORDED.get(rel, []):
+        ref, n = re.subn(pattern, words, ref)
+        assert n == 1, pattern
+    assert (PORT / rel).read_text() == ref
 
 
 def test_trimmed_profiles_keep_calibrate_from_engine_verbatim():

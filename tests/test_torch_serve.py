@@ -6,12 +6,15 @@ JAX engine's greedy tokens for the same prompt and weights (exact).  The
 CLI also serves two models, reduced granite and reduced h2o-danube, on the
 dense backend with model swaps; reduced mamba2 alone on the dense backend
 (single-shot prefill); and reduced granite with reduced mamba2, swapping
-between a transformer and an SSM.
+between a transformer and an SSM.  The threaded driver (one thread per
+engine, ``--threaded``) serves the same workload on two instances with the
+JAX engine's tokens, and ``--compare-drivers`` runs both drivers.
 """
 import argparse
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from repro.configs import ARCHITECTURES
@@ -104,3 +107,70 @@ def test_serve_cli_swaps_granite_and_mamba2():
     assert stats["requests"] == stats["served"] == 8
     assert stats["failed"] == stats["dropped_unserved"] == 0
     assert stats["swaps"] >= 1 and stats["tokens"] >= 8 * 3
+
+
+def test_threaded_driver_serves_every_request_like_the_jax_engine():
+    """``run_threaded`` (one thread per engine, two instances) serves the
+    round-robin test's workload: every request ends terminal and served,
+    no block leaks on either engine, and every request's tokens equal the
+    JAX engine's greedy tokens and the round-robin driver's on the same
+    seed (exact)."""
+    kw = dict(num_layers=2, d_model=128, num_heads=4, num_kv_heads=2)
+    jmodel = jax_build_model(ARCHITECTURES[ARCH].reduced(**kw))
+    jparams = jmodel.init(jax.random.key(3))
+    tcfg = get_arch(ARCH).reduced(**kw)
+    registry = {ARCH: (build_model(tcfg),
+                       from_jax_params(jax.tree.map(np.asarray, jparams),
+                                       tcfg, device="cpu"))}
+    args = argparse.Namespace(
+        slots=4, decode_burst=2, backend=None, prefix_sharing=True,
+        debug_invariants=True, device="cpu", instances=2, threaded=True,
+        routing="solver", requests=8, rate=20.0, max_new_tokens=6, seed=0,
+        max_wall=120.0)
+    runs = {}
+    for threaded in (True, False):
+        args.threaded = threaded
+        np.random.seed(0)        # calibrate_from_engine draws its prompts
+        stats, seen, engines = serve.run_once(args, registry, [ARCH])
+        assert stats["driver"] == ("threaded" if threaded
+                                   else "round-robin")
+        assert stats["requests"] == stats["served"] == len(seen) == 8
+        assert all(r.finished() for r in seen)
+        assert all(e.block_mgr.used_blocks == 0 for e in engines)
+        assert len(engines) == 2
+        runs[threaded] = [r.output_tokens for r in seen]
+    assert all(len(t) == 6 for t in runs[True])
+    assert runs[True] == runs[False]
+
+    prompts = [list(r.prompt_tokens) for r in seen]
+    ref = JaxEngine(jmodel, jparams, JaxEngineConfig(
+        attention_backend="paged-xla", max_slots=len(prompts),
+        max_seq_len=128), model_name=ARCH)
+    twins = [JaxRequest(prompt_tokens=p, model=ARCH, slo=1e9,
+                        max_new_tokens=6) for p in prompts]
+    for t in twins:
+        assert ref.admit(t)
+    while ref.num_active():
+        ref.step()
+    assert runs[True] == [t.output_tokens for t in twins]
+
+
+def test_serve_cli_threaded_and_compare_drivers(capsys):
+    """``--threaded`` and ``--compare-drivers`` on the CPU serve every
+    request (each engine on its own thread, the controller ticking on its
+    own); ``--hetero`` still refuses."""
+    flags = ["--device", "cpu", "--instances", "2", "--requests", "8",
+             "--rate", "20", "--max-new-tokens", "4", "--slots", "4",
+             "--debug-invariants"]
+    stats = serve.main(flags + ["--threaded"])
+    assert stats["driver"] == "threaded"
+    assert stats["requests"] == stats["served"] == 8
+    assert stats["failed"] == stats["dropped_unserved"] == 0
+    assert len(stats["engine_rounds"]) == 2 and stats["controller_ticks"] > 0
+    out = serve.main(flags + ["--compare-drivers"])
+    assert set(out) == {"threaded", "round-robin"}
+    for st in out.values():
+        assert st["requests"] == st["served"] == 8
+    assert "tokens/s           threaded" in capsys.readouterr().out
+    with pytest.raises(NotImplementedError, match="sharding rules"):
+        serve.main(flags + ["--hetero"])
