@@ -5,12 +5,15 @@ from __future__ import annotations
 from typing import Dict
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.deepseek_67b import CONFIG as DEEPSEEK_67B
 from repro_torch.configs.granite_3_2b import CONFIG as GRANITE_3_2B
 from repro_torch.configs.h2o_danube_1_8b import CONFIG as H2O_DANUBE_1_8B
 from repro_torch.configs.mamba2_130m import CONFIG as MAMBA2_130M
+from repro_torch.configs.qwen1_5_32b import CONFIG as QWEN1_5_32B
 
 ARCHITECTURES: Dict[str, ModelConfig] = {
-    c.name: c for c in (GRANITE_3_2B, H2O_DANUBE_1_8B, MAMBA2_130M)}
+    c.name: c for c in (GRANITE_3_2B, H2O_DANUBE_1_8B, DEEPSEEK_67B,
+                        QWEN1_5_32B, MAMBA2_130M)}
 
 
 def get_arch(name: str) -> ModelConfig:

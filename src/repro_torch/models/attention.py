@@ -1,8 +1,8 @@
-"""GQA attention (PyTorch twin of ``src/repro/models/attention.py``
-without the legacy single-shot prefill): full-sequence training attention
-(``attend_train``), and attention over the KV cache, the paged page pool
-and the dense per-slot cache, each in float and with int8 KV
-(``cfg.kv_quant``).
+"""GQA attention (PyTorch twin of ``src/repro/models/attention.py``):
+full-sequence training attention (``attend_train``), the single-shot
+prefill that also fills a dense cache (``attend_prefill``), and attention
+over the KV cache, the paged page pool and the dense per-slot cache, each
+in float and with int8 KV (``cfg.kv_quant``).
 
 Caches are dicts of tensors updated in place: ``{"k", "v"}``, plus
 ``{"k_scale", "v_scale"}`` (one scale per row, in the model's dtype) when
@@ -209,6 +209,45 @@ def attend_train(params, cfg, x: torch.Tensor, positions: torch.Tensor,
         out = _sdpa(q, k, v, mask)
     out = out.transpose(1, 2).reshape(B, L, cfg.num_heads
                                       * cfg.resolved_head_dim)
+    return out @ params["wo"]
+
+
+def attend_prefill(params, cfg, x: torch.Tensor, positions: torch.Tensor,
+                   cache: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Causal (or sliding-window) attention over a whole prompt that starts
+    at position 0, filling the dense per-slot ``cache`` in place.
+
+    x: (B, L, d); positions: (1 or B, L), ``[0, L)``.  The attention is
+    ``_sdpa`` over the prompt, as the reference computes it outside any
+    kernel.  The cache's S = ``cache_len`` live columns take the prompt's
+    k/v: position p at column p, the rest zeroed; a rolling window shorter
+    than the prompt keeps the last S positions, position p at column
+    ``p % S``.  The write-sink column S stays as it was.  Returns (B, L, d).
+    """
+    B, L, _ = x.shape
+    q, k, v = _project_qkv(params, cfg, x, positions)  # k/v: (B, L, KVH, hd)
+    if cfg.sliding_window is not None:
+        mask = layers.sliding_window_mask(L, L, 0, cfg.sliding_window,
+                                          x.device)[None, None]
+    else:
+        mask = layers.causal_mask(L, L, 0, x.device)[None, None]
+    out = _sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                mask)
+    out = out.transpose(1, 2).reshape(B, L, cfg.num_heads
+                                      * cfg.resolved_head_dim)
+
+    S = cache["k"].shape[2] - 1
+    rows = torch.arange(B, device=x.device)[:, None]
+    if cfg.sliding_window is not None and L > S:
+        # the last S positions, each at its rolling column
+        slots = torch.remainder(torch.arange(L - S, L, device=x.device), S)
+        _write_rows(cfg, cache, k[:, L - S:], v[:, L - S:], rows,
+                    slots[None])
+    else:
+        for leaf in cache.values():
+            leaf[:, :, L:S] = 0
+        _write_rows(cfg, cache, k, v, rows,
+                    torch.arange(L, device=x.device)[None])
     return out @ params["wo"]
 
 

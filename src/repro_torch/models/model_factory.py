@@ -9,8 +9,7 @@ paths) and ``"ssm"`` (mamba2: single-shot prefill and decode)).
     (the SSM's conv and state)
   * ``decode_step(params, cache, tokens, lengths)``
   * ``prefill(params, batch, cache)`` -> (last logits, cache): single-shot
-    prefill of ``batch["tokens"]``; None for the dense transformer (its
-    single-shot ``attend_prefill`` is not ported)
+    prefill of ``batch["tokens"]`` into a dense per-slot cache
   * ``prefill_chunk(params, cache, tokens, starts, valid)``
   * ``init_paged_cache(num_blocks, block_size, dtype, device)`` -> page pools
   * ``prefill_chunk_paged(params, cache, tokens, starts, valid, block_table)``
@@ -66,6 +65,8 @@ def _build_transformer(cfg: ModelConfig) -> Model:
         init_cache=lambda batch, max_seq, dtype=torch.float32, device="cuda":
             transformer.init_cache(cfg, batch, max_seq, dtype,
                                    resolve_device(device)),
+        prefill=lambda params, batch, cache:
+            transformer.prefill(params, cfg, batch["tokens"], cache),
         prefill_chunk=lambda params, cache, tokens, starts, valid:
             transformer.prefill_chunk(params, cfg, tokens, starts, valid,
                                       cache),

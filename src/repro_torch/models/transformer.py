@@ -1,7 +1,8 @@
 """Dense decoder-only transformer LM (PyTorch twin of
 ``src/repro/models/transformer.py`` for ``arch_type == "dense"``): the
-training loss (``loss_fn``), and chunked prefill and decode over the paged
-KV pool or the dense per-slot cache.
+training loss (``loss_fn``), the single-shot prefill into the dense
+per-slot cache (``prefill``), and chunked prefill and decode over the
+paged KV pool or the dense per-slot cache.
 
 Params are nested dicts: ``{"embed", "final_norm", ["lm_head"], "blocks":
 [per-layer dict, ...]}`` — one dict per layer instead of the reference's
@@ -141,6 +142,21 @@ def _forward(params, cfg, x: torch.Tensor, cache: Dict[str, torch.Tensor],
         h = layers.rms_norm(x, bp["mlp_norm"], cfg.rms_norm_eps)
         x = x + layers.swiglu_mlp(bp["mlp"], h)
     return layers.rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+
+
+def prefill(params, cfg, tokens: torch.Tensor,
+            cache: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Single-shot prefill of whole prompts from position 0.  tokens: (B,
+    L); ``cache``: a dense per-slot cache of batch B (``init_cache``).
+    Returns (the last position's logits (B, V), the cache filled in
+    place)."""
+    x = layers.embed_tokens(params, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    x = _forward(params, cfg, x, cache,
+                 lambda ap, h, layer: attention.attend_prefill(
+                     ap, cfg, h, positions, layer))
+    return layers.unembed(params, cfg, x[:, -1]), cache
 
 
 def _chunk(params, cfg, tokens: torch.Tensor, starts: torch.Tensor,

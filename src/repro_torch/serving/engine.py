@@ -55,9 +55,20 @@ changed is the compute:
     torch tensors of the evicted pages or slot (bfloat16 has no numpy
     dtype); a snapshot resumes only on an engine of its own layout.
 
-Not ported: the reference's ``"xla"`` / ``"paged-xla"`` backends, the
-single-shot prefill of a dense transformer (``prefill_chunk_tokens=0``),
-modality extras and ``fork_slot`` raise ``NotImplementedError``.
+At ``prefill_chunk_tokens <= 0`` a dense transformer is admitted, as the
+SSM always is, through the single-shot prefill: ``_prefill_one`` runs
+``transformer.prefill`` (plain ``_sdpa`` over the prompt, as the
+reference's jnp path) into a batch-1 dense cache that ``_insert_cache``
+copies into the slot; the page pool refuses it with the reference's
+``ValueError``.  ``fork_slot`` clones a decoding request onto shared pages,
+the tail's copy-on-write landing at the next dispatch.
+
+Not ported: modality extras (the single-shot prefill of a VLM or enc-dec
+model) raise ``NotImplementedError``.  The reference's ``"xla"`` /
+``"paged-xla"`` backends do too, and stay refused: they are its plain-jnp
+parity path, which on a card would run the plain versions on the main
+path, where the port runs only its CUDA kernels; the port's plain versions
+are its CPU run (``device="cpu"``), which every backend already has.
 """
 from __future__ import annotations
 
@@ -227,16 +238,10 @@ class ContinuousBatchingEngine:
         self._admit_completed: List[Request] = []
 
     def _check_layout(self, model: Model) -> None:
-        """Refuse, before any state changes, a model this engine cannot
-        serve: one that needs the unported single-shot prefill of a dense
-        transformer, one without pageable KV (an SSM) or with a sliding
-        window on the page pool."""
-        if model.prefill is None and (self.cfg.prefill_chunk_tokens <= 0
-                                      or model.prefill_chunk is None):
-            raise NotImplementedError(
-                f"the single-shot prefill of a {model.cfg.arch_type} model "
-                f"(prefill_chunk_tokens <= 0) is not ported: "
-                f"{model.cfg.name} needs chunked prefill")
+        """Refuse, before any state changes, what the page pool cannot
+        serve: a model without pageable KV (an SSM) or with a sliding
+        window, and the single-shot prefill, which writes dense per-slot
+        caches."""
         if self.paged and model.init_paged_cache is None:
             raise ValueError(
                 f"attention_backend "
@@ -248,6 +253,11 @@ class ContinuousBatchingEngine:
                 f"paged attention backends support full attention only; "
                 f"{model.cfg.name} has a sliding window (serve it on "
                 f"attention_backend='cuda')")
+        if self.paged and self.cfg.prefill_chunk_tokens <= 0:
+            raise ValueError(
+                "paged attention backends require chunked prefill "
+                "(prefill_chunk_tokens > 0): the single-shot path writes "
+                "per-slot dense caches")
 
     def _with_tile(self, model: Model) -> Model:
         """``model`` with ``cfg.pages_per_tile`` in its config's
@@ -514,6 +524,12 @@ class ContinuousBatchingEngine:
                     "cannot resume a live-pinned KV snapshot outside the "
                     "engine that evicted it mid-decode (materialize it "
                     "first: cross-engine migration)")
+        if req.snapshot is not None \
+                and req.snapshot.get("prefill_pos", req.prompt_len) \
+                < req.prompt_len and not self._use_chunked():
+            # a mid-prefill snapshot on an engine that cannot chunk: drop
+            # it and recompute the whole prefill
+            self._discard_snapshot(req)
         if req.snapshot is not None:
             snap = req.snapshot
             length = int(snap["length"])
@@ -564,8 +580,9 @@ class ContinuousBatchingEngine:
             self.lengths[slot] = start
             self.slots[slot] = req
         else:
-            # single-shot path (the SSM's state carry).  Compute first: a
-            # raising prefill must leave the engine clean.
+            # single-shot path (the SSM's state carry; a dense transformer
+            # at prefill_chunk_tokens <= 0).  Compute first: a raising
+            # prefill must leave the engine clean.
             tok, cache1 = self._prefill_one(np.asarray(req.prompt_tokens))  # qlint: disable=host-sync-in-hot-path -- host prompt list -> array for the one-shot prefill path
             self.slots[slot] = req
             self._insert_cache(cache1, slot)
@@ -747,8 +764,44 @@ class ContinuousBatchingEngine:
             self._materialize_one(req)
         self._pinned_snapshots = []
 
+    # ------------------------------------------------------------------
+    # fork (parallel-sampling style sequence cloning)
+    # ------------------------------------------------------------------
     def fork_slot(self, slot: int) -> Optional[Request]:
-        raise NotImplementedError("fork_slot is not ported yet")
+        """Clone a decode-phase request into a free slot, sharing every KV
+        page with the source (refcounts, zero page copies; the manager
+        copy-on-writes a partial tail block so the two decodes never write
+        the same page, and the copy lands at the next dispatch).  Greedy
+        decoding makes the clone continue exactly as the source would.
+        Returns None when no slot is free; raises OutOfBlocksError when the
+        tail copy cannot get a block.  Page-pool backends with
+        ``prefix_sharing`` only."""
+        if not self.prefix_sharing:
+            raise ValueError(
+                "fork_slot requires a paged attention backend with "
+                "EngineConfig.prefix_sharing enabled")
+        src = self.slots[slot]
+        assert src is not None, slot
+        if self.prefill_pos[slot] < src.prompt_len:
+            raise ValueError("cannot fork a mid-prefill slot")
+        new_slot = self._free_slot()
+        if new_slot is None:
+            return None
+        clone = Request(
+            prompt_tokens=list(src.prompt_tokens), model=src.model,
+            slo=src.slo, arrival_time=src.arrival_time,
+            max_new_tokens=src.max_new_tokens, slo_class=src.slo_class,
+            priority=src.priority)
+        clone.output_tokens = list(src.output_tokens)
+        clone.generated = src.generated
+        clone.first_token_time = src.first_token_time
+        self.block_mgr.fork(src.req_id, clone.req_id)
+        self.block_mgr.bind_slot(clone.req_id, new_slot)
+        self.slots[new_slot] = clone
+        self.lengths[new_slot] = self.lengths[slot]
+        self.prefill_pos[new_slot] = self.prefill_pos[slot]
+        self.stats.forks += 1
+        return clone
 
     # ------------------------------------------------------------------
     # model swapping LSO

@@ -1,3 +1,5 @@
-from repro_torch.sim.profiles import calibrate_from_engine
+from repro_torch.sim.profiles import DEVICE_PROFILES, calibrate_from_engine, profiles_for
+from repro_torch.sim.simulator import ClusterSimulator, SimInstance
 
-__all__ = ["calibrate_from_engine"]
+__all__ = ["ClusterSimulator", "SimInstance", "DEVICE_PROFILES",
+           "calibrate_from_engine", "profiles_for"]

@@ -177,11 +177,16 @@ def test_copy_on_write_page_copy_matches_jax(models):
 
 
 def test_unported_paths_raise(models):
+    """The reference's "paged-xla" backend stays refused; the page pool
+    refuses the single-shot prefill and a fork of a mid-prefill slot with
+    the reference's ValueError (the single-shot prefill and fork_slot are
+    held against the JAX engine in test_torch_single_shot_prefill.py and
+    test_torch_fork_slot.py)."""
     _, (tm, tp) = models
     with pytest.raises(NotImplementedError):
         ContinuousBatchingEngine(tm, tp, EngineConfig(
             device="cpu", attention_backend="paged-xla"))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="require chunked prefill"):
         ContinuousBatchingEngine(tm, tp, EngineConfig(
             device="cpu", prefill_chunk_tokens=0))
     eng = ContinuousBatchingEngine(tm, tp, EngineConfig(
@@ -189,7 +194,7 @@ def test_unported_paths_raise(models):
     r = Request(prompt_tokens=[1, 2, 3], model="m1", slo=1e9,
                 max_new_tokens=2)
     assert eng.admit(r)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="mid-prefill"):
         eng.fork_slot(0)
 
 

@@ -28,7 +28,9 @@ COPIES = ["configs/base.py", "configs/granite_3_2b.py",
           "training/data_pipeline.py", "core/autoscale.py",
           "serving/faults.py", "serving/cluster.py", "serving/frontend.py",
           "data/__init__.py", "data/sharegpt_synth.py", "data/workload.py",
-          "serving/__init__.py"]
+          "serving/__init__.py", "core/policies.py", "core/priority.py",
+          "sim/profiles.py", "sim/simulator.py", "configs/qwen1_5_32b.py",
+          "configs/deepseek_67b.py"]
 
 
 def _rewrite(src: str) -> str:
@@ -87,13 +89,6 @@ def test_copied_module_equals_its_reference(rel):
         ref, n = re.subn(pattern, words, ref)
         assert n == 1, pattern
     assert (PORT / rel).read_text() == ref
-
-
-def test_trimmed_profiles_keep_calibrate_from_engine_verbatim():
-    def body(text):
-        return text[text.index("def calibrate_from_engine"):]
-    assert body((PORT / "sim/profiles.py").read_text()) \
-        == body((REF / "sim/profiles.py").read_text())
 
 
 def test_engine_without_cuda_raises_instead_of_using_the_cpu(monkeypatch):

@@ -9,9 +9,10 @@ weights (carried across by ``models/convert.py``):
   * a request finished by its prefill token, returned by the next step;
   * a granite -> mamba2 -> granite model swap on the dense layout;
   * the layout rules: the page pool refuses the SSM (construction and
-    swap, before anything is flushed), and what is not ported still
-    raises ``NotImplementedError``: a dense transformer without chunked
-    prefill, modality extras.
+    swap, before anything is flushed) and the single-shot prefill; a
+    dense transformer without chunked prefill serves on the dense layout
+    (also after a swap from mamba2); modality extras, which are not
+    ported, still raise ``NotImplementedError``.
 
 Tolerance: exact on tokens.
 """
@@ -209,19 +210,24 @@ def test_layout_rules(pairs):
     with pytest.raises(ValueError, match="pageable KV"):
         paged.swap_model(tm, tmp, "m2")
     assert paged.num_active() == 1 and paged.model_name == "m1"
-    # the dense transformer's single-shot prefill is not ported ...
+    # the page pool refuses the single-shot prefill ...
     no_chunks = {**BASE, "prefill_chunk_tokens": 0}
-    with pytest.raises(NotImplementedError, match="single-shot prefill"):
+    with pytest.raises(ValueError, match="require chunked prefill"):
         ContinuousBatchingEngine(tg, tgp, EngineConfig(
-            device="cpu", attention_backend="cuda", **no_chunks))
+            device="cpu", **no_chunks))
     # ... the SSM's always runs, chunking configured or not
     eng = ContinuousBatchingEngine(tm, tmp, EngineConfig(
         device="cpu", attention_backend="cuda", **no_chunks), model_name="m2")
-    with pytest.raises(NotImplementedError, match="single-shot prefill"):
-        eng.swap_model(tg, tgp, "m1")
     s = Request(prompt_tokens=[1, 2, 3], model="m2", slo=1e9,
                 max_new_tokens=3)
     with pytest.raises(NotImplementedError, match="modality extras"):
         eng.admit(s, extras={"patch_embeds": np.zeros((1, 4))})
     assert eng.num_active() == 0 and eng.admit(s)
     _drain(eng, [s])
+    # ... and so does a dense transformer's on the dense layout (its tokens
+    # are held against the JAX engine in test_torch_single_shot_prefill.py)
+    eng.swap_model(tg, tgp, "m1")
+    g = Request(prompt_tokens=[1, 2, 3], model="m1", slo=1e9,
+                max_new_tokens=3)
+    assert eng.admit(g) and eng.stats.prefills == 2
+    _drain(eng, [g])
