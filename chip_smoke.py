@@ -150,6 +150,26 @@ Phases, in order; any failure exits non-zero before the result lines:
      launched exactly once a layer per decode step and chunk round and no
      other, tokens equal or parting only at near ties; deepseek with int8
      KV on both layouts;
+  7d. MoE/VLM phase (``moe_vlm_phase``): qwen3-moe-30b-a3b whole (48
+     layers, 128 experts top 8, 32 heads on 4), dbrx-132b (48 heads on 8,
+     16 experts top 4) cut to ``MOE_VLM_LAYERS`` of its 40 layers and
+     llava-next-34b (56 heads on 8, 2880 patch tokens) cut to 48 of 60,
+     full width, bf16, one after the other: the attention kernels against
+     their plain versions at their shapes (groups 8, 6 and 7, head_dim
+     128; dbrx's int8 twins too; llava's dense decode over a 3009-column
+     cache) and timed; qwen3-moe's 8 requests chunked on the page pool
+     twice (bitwise equal tokens) and single-shot on the dense backend
+     (the partings printed, not gated: capacity-bounded routing depends
+     on the tokens routed together), its decode step's device and eager
+     time beside its weight-read bound; dbrx's on float and int8 pages,
+     its decode step timed too; llava's 4 requests with random patch
+     embeddings through ``admit(..., extras=...)`` on the dense backend,
+     and the page pool's refusal of them; launches exactly one a layer
+     per decode step and chunk round, no other kernel;
+  7e. hetero phase: ``serve.run_threaded`` with ``--hetero`` over 3
+     instances of full-width granite-3-2b: one calibration per tier
+     ((16, 4), (8, 2), (4, 1) slots and burst), every request terminal, no
+     page leaked, only the two float paged kernels launched;
   8. reference phase: reduced models in float32 on the card and on the
      CPU (the kernels' plain versions) with the same weights must give the
      same greedy tokens through chunked prefill, evict/resume and decode
@@ -157,7 +177,10 @@ Phases, in order; any failure exits non-zero before the result lines:
      the dense backend, chunked and through the single-shot prefill,
      h2o-danube on the dense backend with prompts past its 64-token
      rolling window, qwen1.5-32b (QKV bias, group 1) on the page pool and
-     deepseek-67b (group 8) on the dense backend at head_dim 128; granite on int8 pages must keep its
+     deepseek-67b (group 8) on the dense backend at head_dim 128,
+     qwen3-moe-30b-a3b (group 8, 4 experts top 2) on the page pool, and
+     llava-next-34b (group 7) on the dense backend with patch embeddings
+     on every request; granite on int8 pages must keep its
      logits within 1e-3 of the CPU's and may part from its tokens only at
      a near tie (``near_tie_parting``); so may mamba2 (dense backend,
      single-shot prefill through the SSD kernel on the card), whose
@@ -181,6 +204,7 @@ The second-to-last line is the kernels' JSON record, the last line
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import importlib
@@ -429,25 +453,45 @@ def dense_case(rng, gen, dtype, lengths, S, quant=False, *, H=32, KVH=8,
     return (q, *_rows(gen, (B, KVH, S, D), dtype, quant), _ints(lengths))
 
 
-def compare(out, want, dtype, rows=None, tol=TOL):
+def compare(out, want, dtype, live=None, tol=TOL):
     """Max abs error and whether every element is within tol[dtype];
-    ``rows`` restricts a prefill output to each sequence's valid rows."""
-    if rows is not None:
-        out = torch.cat([out[b, :, :n].flatten() for b, n in enumerate(rows)])
-        want = torch.cat([want[b, :, :n].flatten()
-                          for b, n in enumerate(rows)])
+    ``live``, for a prefill output: each sequence's live rows, past which
+    the output must be exact zeros (the plain version's are)."""
+    zeros = live is None or not any(bool(out[b, :, n:].any())
+                                    for b, n in enumerate(live))
     out, want = out.float(), want.float()
     err = (out - want).abs()
     ok = bool((err <= tol[dtype]["atol"] + tol[dtype]["rtol"]
                * want.abs()).all())
-    return (float(err.max()) if err.numel() else 0.0), ok
+    return (float(err.max()) if err.numel() else 0.0), ok and zeros
 
 
-def check_case(failures, name, dtype, case, args, rows=None) -> float:
-    """Kernel ``name`` against its plain version on ``args``; a
-    disagreement is appended to ``failures``."""
+def prefill_live(args) -> list:
+    """Each sequence's live rows (``live_rows``) of a prefill kernel's
+    ``args``: q (B, H, C, D) first, valid last."""
+    from repro_torch.kernels.paged_prefill_attention import live_rows
+    return live_rows(args[0].shape[2], args[-1]).tolist()
+
+
+def prefill_work(H, D, C, starts, valid, live) -> dict:
+    """What a paged prefill must do, for ``bound``: q read for the live
+    rows, the whole (B, C) output written (zeros past the live rows), the
+    chunk's k/v read for the valid rows, and 4 H D flops per (live row,
+    visible key): the prefix, then the chunk's keys below valid, causal."""
+    return dict(
+        q_rows=sum(live), out_rows=len(valid) * C, kv_rows=sum(starts),
+        chunk_rows=sum(valid),
+        flops=4.0 * H * D * sum(n * s + v * (v + 1) / 2 + (n - v) * v
+                                for s, v, n in zip(starts, valid, live)))
+
+
+def check_case(failures, name, dtype, case, args) -> float:
+    """Kernel ``name`` against its plain version on ``args`` (a prefill's
+    every row: the live ones, and zeros past them); a disagreement is
+    appended to ``failures``."""
     fn, plain = kernel_fns(name)
-    err, ok = compare(fn(*args), plain(*args), dtype, rows)
+    live = prefill_live(args) if "prefill" in name else None
+    err, ok = compare(fn(*args), plain(*args), dtype, live)
     torch.cuda.synchronize()
     log(f"  {name:30s} {str(dtype):15s} {case:24s} max_abs_err {err:.3e}"
         f" {'ok' if ok else 'FAIL'}")
@@ -505,13 +549,14 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
 
 
 def attn_bytes(esize, *, H, KVH, D, q_rows, kv_rows, quant, chunk_rows=0,
-               table=0, ints=0):
-    """Bytes an attention call must move: q and out (``q_rows`` query
-    tokens), the live k/v rows (int8 plus one scale each when ``quant``),
-    a prefill chunk's own k/v, the live table entries and the per-sequence
-    ints."""
+               table=0, ints=0, out_rows=None):
+    """Bytes an attention call must move: q (``q_rows`` query tokens) and
+    out (``out_rows``, default ``q_rows``), the live k/v rows (int8 plus
+    one scale each when ``quant``), a prefill chunk's own k/v, the live
+    table entries and the per-sequence ints."""
     kv_row = D + esize if quant else D * esize
-    return (2 * q_rows * H * D * esize + 2 * kv_rows * KVH * kv_row
+    out_rows = q_rows if out_rows is None else out_rows
+    return ((q_rows + out_rows) * H * D * esize + 2 * kv_rows * KVH * kv_row
             + 2 * chunk_rows * KVH * D * esize + 4 * (table + ints))
 
 
@@ -688,7 +733,7 @@ def kernel_phase(shapes: dict):
             for case, kw in prefill_cases.items():
                 check_case(failures, "paged_prefill_attention" + sfx, dtype,
                            case, prefill_case(rng, gen, dtype, quant=quant,
-                                              **kw), rows=kw["valid"])
+                                              **kw))
             for case, kw in dense_cases.items():
                 check_case(failures, "decode_attention" + sfx, dtype, case,
                            dense_case(rng, gen, dtype, quant=quant, **kw))
@@ -699,10 +744,9 @@ def kernel_phase(shapes: dict):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     records = {}
 
-    def timed(name, args, nbytes, flops, library=None, rows=None):
+    def timed(name, args, nbytes, flops, library=None):
         fn, plain = kernel_fns(name)
-        err = check_case(failures, name, dtype, "timed serving shapes", args,
-                         rows)
+        err = check_case(failures, name, dtype, "timed serving shapes", args)
         bound_ms, by = bound(nbytes, flops, dtype)
         records[name] = {
             "max_abs_err": err, "ms": time_ms(lambda: fn(*args)),
@@ -757,14 +801,14 @@ def kernel_phase(shapes: dict):
                     "two_call_ms": time_ms(prefill_two_calls(args, dtype))}))
         else:
             library = prefill_library(args, dtype)
-        # only the valid query rows are needed (rows past valid[b] are
-        # garbage the caller ignores); the prefix is empty, so no table
-        # entry is live
+        # the prefix is empty, so no table entry is live
+        work = prefill_work(H, D, C, [0] * B, valid.tolist(),
+                            prefill_live(args))
         timed("paged_prefill_attention" + ("_quant" if quant else ""), args,
-              attn_bytes(esize, H=H, KVH=KVH, D=D, q_rows=n_q, kv_rows=0,
-                         quant=quant, chunk_rows=n_q, ints=2 * B),
-              4.0 * H * D * float(sum(v * (v + 1) / 2 for v in valid)),
-              library, rows=valid.tolist())
+              attn_bytes(esize, H=H, KVH=KVH, D=D, q_rows=work["q_rows"],
+                         out_rows=work["out_rows"], kv_rows=0, quant=quant,
+                         chunk_rows=work["chunk_rows"], ints=2 * B),
+              work["flops"], library)
 
     for quant in (False, True):
         args = dense_case(rng, gen, dtype, lengths.tolist(), S1, quant)
@@ -818,22 +862,21 @@ def long_context(rng, gen, failures) -> None:
                         4.0 * H * D * live, dtype)
         cases = [("paged_decode_attention" + sfx,
                   decode_case(rng, gen, dtype, [L] * n, quant, nb=L // 16),
-                  d_bound, None, ""),
+                  d_bound, ""),
                  ("decode_attention" + sfx,
                   dense_case(rng, gen, dtype, [L] * n, L, quant), d_bound,
-                  None, ""),
+                  ""),
                  ("paged_prefill_attention" + sfx,
                   prefill_case(rng, gen, dtype, [2048] * 4, [128] * 4, 128,
                                quant), p_bound(4, 2048, 128, quant),
-                  [128] * 4, " B4 C128 prefix 2048")]
+                  " B4 C128 prefix 2048")]
         if not quant:
             cases.append(("paged_prefill_attention",
                           prefill_case(rng, gen, dtype, [4096], [128], 128),
-                          p_bound(1, 4096, 128, False), [128],
+                          p_bound(1, 4096, 128, False),
                           " B1 C128 prefix 4096"))
-        for name, args, (b, by), rows, label in cases:
-            check_case(failures, name, dtype, "long context" + label, args,
-                       rows)
+        for name, args, (b, by), label in cases:
+            check_case(failures, name, dtype, "long context" + label, args)
             fn, plain = kernel_fns(name)
             rec = {"ms": time_ms(lambda: fn(*args)), "bound_ms": b,
                    "bound_by": by}
@@ -1889,13 +1932,25 @@ DENSE_FAMILY_LAYERS = 16
 DENSE_FAMILY_INT8 = "deepseek-67b"
 
 
-def dense_family_kernels(cfg, quant: bool) -> None:
+# chunks longer than 128 rows, where the reference's q tiles (128 rows
+# here) end inside the kernel's (64 // group rows): (C, starts, valid),
+# valid at most 128 in some rows, 129 and past in others
+LONG_CHUNKS = (
+    (256, [0, 40, 300, 7, 0, 64], [1, 100, 128, 0, 129, 256]),
+    (512, [0, 40, 300, 7, 0, 64], [130, 1, 300, 0, 383, 512]))
+
+
+def dense_family_kernels(cfg, quant: bool, tag: str = "dense-family",
+                         dense_lengths=None) -> None:
     """The page-pool decode and prefill and the dense decode kernels (their
     int8 twins too when ``quant``) against their plain versions at the
     dense-family runs' shapes: 8 slots, 16-token pages, 8 blocks a
-    sequence, 64 pages, 32-token chunks, the 129-column dense cache, the
+    sequence, 64 pages, 32-token chunks, the 129-column dense cache (or,
+    with ``dense_lengths``, a cache one column past the longest), the
     arch's heads and KV heads at head_dim 128, bf16; each timed beside its
-    plain version, its bound and (float) SDPA."""
+    plain version, its bound and (float) SDPA.  The prefill kernels also
+    at LONG_CHUNKS, checked only.  Every prefill row is compared, the
+    padding rows past valid included."""
     H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     dtype, esize = torch.bfloat16, 2
     B, nb, N, S1, C = 8, 8, 64, 129, 32
@@ -1906,31 +1961,39 @@ def dense_family_kernels(cfg, quant: bool) -> None:
     starts = [0, 32, 0, 0, 32, 0, 64, 96]
     valid = [32, 20, 5, 0, 32, 17, 9, 31]
     live = sum(lengths)
+    d_lengths = dense_lengths or lengths
+    if dense_lengths:
+        S1 = max(dense_lengths) + 1
     failures = []
     for q8 in (False, True) if quant else (False,):
         sfx = "_quant" if q8 else ""
+        p_args = prefill_case(rng, gen, dtype, starts, valid, C, q8, H=H,
+                              KVH=KVH, D=D, nb=nb, N=N)
+        work = prefill_work(H, D, C, starts, valid, prefill_live(p_args))
         cases = [
             ("paged_decode_attention" + sfx,
              decode_case(rng, gen, dtype, lengths, q8, H=H, KVH=KVH, D=D,
                          nb=nb, N=N),
              attn_bytes(esize, H=H, KVH=KVH, D=D, q_rows=B, kv_rows=live,
                         quant=q8, table=sum(-(-n // 16) for n in lengths),
-                        ints=B), 4.0 * H * D * live, None),
-            ("paged_prefill_attention" + sfx,
-             prefill_case(rng, gen, dtype, starts, valid, C, q8, H=H,
-                          KVH=KVH, D=D, nb=nb, N=N),
-             attn_bytes(esize, H=H, KVH=KVH, D=D, q_rows=sum(valid),
-                        kv_rows=sum(starts), quant=q8, chunk_rows=sum(valid),
+                        ints=B), 4.0 * H * D * live),
+            ("paged_prefill_attention" + sfx, p_args,
+             attn_bytes(esize, H=H, KVH=KVH, D=D, q_rows=work["q_rows"],
+                        out_rows=work["out_rows"], kv_rows=work["kv_rows"],
+                        quant=q8, chunk_rows=work["chunk_rows"],
                         table=sum(starts) // 16, ints=2 * B),
-             4.0 * H * D * sum(s * v + v * (v + 1) / 2
-                               for s, v in zip(starts, valid)), valid),
+             work["flops"]),
             ("decode_attention" + sfx,
-             dense_case(rng, gen, dtype, lengths, S1, q8, H=H, KVH=KVH, D=D),
-             attn_bytes(esize, H=H, KVH=KVH, D=D, q_rows=B, kv_rows=live,
-                        quant=q8, ints=B), 4.0 * H * D * live, None)]
-        for name, args, nbytes, flops, rows in cases:
-            err = check_case(failures, name, dtype,
-                             f"{cfg.name} H{H} KVH{KVH} D{D}", args, rows)
+             dense_case(rng, gen, dtype, d_lengths, S1, q8, H=H, KVH=KVH,
+                        D=D),
+             attn_bytes(esize, H=H, KVH=KVH, D=D, q_rows=B,
+                        kv_rows=sum(d_lengths), quant=q8, ints=B),
+             4.0 * H * D * sum(d_lengths))]
+        for name, args, nbytes, flops in cases:
+            case = f"{cfg.name} H{H} KVH{KVH} D{D}"
+            if name.startswith("decode_attention"):
+                case += f" S{S1}"
+            err = check_case(failures, name, dtype, case, args)
             fn, plain = kernel_fns(name)
             b, by = bound(nbytes, flops, dtype)
             rec = {"max_abs_err": err, "ms": time_ms(lambda: fn(*args)),
@@ -1940,32 +2003,43 @@ def dense_family_kernels(cfg, quant: bool) -> None:
                 rec["library_ms"] = time_ms(decode_library(name, args))
             elif name == "paged_prefill_attention":
                 rec["library_ms"] = time_ms(prefill_library(args, dtype))
-            log(f"  [dense-family] {name} at {cfg.name}'s shapes (group "
-                f"{H // KVH}, D {D}): " + json.dumps(rec))
-    check(not failures, f"dense-family kernels disagree: {failures}")
+            log(f"  [{tag}] {name} at {cfg.name}'s shapes (group "
+                f"{H // KVH}, D {D}"
+                f"{f', S {S1}' if name.startswith('decode_attention') else ''}"
+                f"): " + json.dumps(rec))
+        for lc, l_starts, l_valid in LONG_CHUNKS:
+            args = prefill_case(rng, gen, dtype, l_starts, l_valid, lc, q8,
+                                H=H, KVH=KVH, D=D)
+            check_case(failures, "paged_prefill_attention" + sfx, dtype,
+                       f"{cfg.name} group {H // KVH} C{lc} live "
+                       f"{prefill_live(args)}", args)
+            del args
+    check(not failures, f"{tag} kernels disagree: {failures}")
 
 
 def dense_family_run(label, model, params, backend, chunk, kernels,
-                     prompts) -> list:
-    """One engine on ``backend`` (``chunk`` 0: the single-shot prefill)
-    admits the 8 prompts at once and decodes 16 tokens each; launch counts
-    set to 0 just before and read just after: each kernel of ``kernels``
-    (decode kernel first, then the prefill kernel, if any) exactly once a
-    layer per decode step and per chunk round, no other kernel.  Returns
-    the token streams."""
+                     prompts, *, tag="dense-family", max_seq_len=128,
+                     extras=None) -> list:
+    """One engine on ``backend`` (``chunk`` 0, or modality ``extras``, one
+    dict a prompt: the single-shot prefill) admits the prompts at once and
+    decodes 16 tokens each; launch counts set to 0 just before and read
+    just after: each kernel of ``kernels`` (decode kernel first, then the
+    prefill kernel, if any) exactly once a layer per decode step and per
+    chunk round, no other kernel.  Returns the token streams."""
     from repro_torch.core.request import Request
     from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
 
     eng = ContinuousBatchingEngine(model, params, EngineConfig(
-        max_slots=8, max_seq_len=128, block_size=16,
+        max_slots=8, max_seq_len=max_seq_len, block_size=16,
         prefill_chunk_tokens=chunk, attention_backend=backend,
         dtype=torch.bfloat16, device="cuda"), model_name="m")
     reqs = [Request(prompt_tokens=p, model="m", slo=1e9, max_new_tokens=16)
             for p in prompts]
     reset_launches()
     t0 = time.monotonic()
-    for r in reqs:
-        check(eng.admit(r), f"{label}: not admitted")
+    for i, r in enumerate(reqs):
+        check(eng.admit(r, extras=extras[i] if extras else None),
+              f"{label}: not admitted")
     for _ in range(300):
         eng.step()
         if all(r.finished() for r in reqs):
@@ -1977,13 +2051,14 @@ def dense_family_run(label, model, params, backend, chunk, kernels,
     want = dict.fromkeys(KERNELS, 0)
     for name, per in zip(kernels, (s.decode_iterations, s.prefill_chunks)):
         want[name] = L * per
-    log(f"  [dense-family] {label}: {s.prefills} prefills, "
+    log(f"  [{tag}] {label}: {s.prefills} prefills, "
         f"{s.prefill_chunks} chunk rounds, {s.decode_iterations} decode "
         f"steps in {wall:.2f} s (prefill {s.prefill_time:.3f} s, decode "
         f"{s.decode_time:.3f} s); launches "
         f"{({k: n for k, n in launches.items() if n})}")
     check(launches == want, f"{label}: launches {launches} != {want}")
-    check(s.prefill_chunks == 0 if chunk <= 0 else s.prefill_chunks > 0,
+    chunked = chunk > 0 and not extras
+    check(s.prefill_chunks > 0 if chunked else s.prefill_chunks == 0,
           f"{label}: chunk rounds {s.prefill_chunks}")
     vocab = model.cfg.vocab_size
     check(all(r.finished() and len(r.output_tokens) == 16
@@ -2063,6 +2138,363 @@ def dense_family_phase() -> None:
         log(f"  [dense-family] {arch} in {time.monotonic() - t0:.1f} s")
 
 
+MOE_VLM = ("qwen3-moe-30b-a3b", "dbrx-132b", "llava-next-34b")
+# full width; depth cut only where one card cannot hold it beside the run:
+# qwen3-moe whole (48 layers, 30.5 B params, ~61 GB of bf16); dbrx 8 of
+# 40 layers (27.3 B, ~55 GB; whole it is 131.6 B, ~263 GB); llava 48 of 60
+# layers (27.8 B, ~56 GB; whole it is 34.4 B, ~69 GB, too close to 80 GB
+# beside the plain single-shot prefill's (1, 56, ~2900, ~2900) f32 scores)
+MOE_VLM_LAYERS = {"qwen3-moe-30b-a3b": 48, "dbrx-132b": 8,
+                  "llava-next-34b": 48}
+# llava's dense cache: 2880 patch tokens + up to 60 prompt tokens + 16 new
+VLM_MAX_SEQ = 3008
+
+
+def _init_cut(arch: str, seed: int, tag: str):
+    """``arch`` at full width with its depth cut to MOE_VLM_LAYERS (or the
+    dense-family depth), bf16 weights from a seeded generator; logs the
+    cut, the parameter count and ``memory_allocated``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    t0 = time.monotonic()
+    full = get_arch(arch)
+    cfg = dataclasses.replace(full, num_layers=MOE_VLM_LAYERS[arch])
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(20 + seed)
+    params = model.init(gen, torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    moe = cfg.moe
+    log(f"  [{tag}] {arch}: {cfg.num_layers} of {full.num_layers} layers "
+        f"(depth cut: {full.num_layers != cfg.num_layers}), d_model "
+        f"{cfg.d_model}, {cfg.num_heads} heads on {cfg.num_kv_heads} (group "
+        f"{cfg.num_heads // cfg.num_kv_heads}), head_dim "
+        f"{cfg.resolved_head_dim}"
+        + (f", {moe.num_experts} experts top {moe.experts_per_token} of "
+           f"width {moe.d_ff_expert}, capacity_factor {moe.capacity_factor}"
+           if moe else "")
+        + (f", {cfg.vision.num_patch_tokens} patch tokens" if cfg.vision
+           else "")
+        + f", {sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B params "
+        f"bf16 ({cfg.param_count() / 1e9:.3f} B by the config, "
+        f"{full.param_count() / 1e9:.3f} B at full depth), "
+        f"memory_allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB; "
+        f"init in {time.monotonic() - t0:.1f} s")
+    return cfg, model, params, gen
+
+
+def moe_step_timing(tag, label, model, params) -> None:
+    """Informational: one decode step at 8 slots x 40 tokens on the page
+    pool, device time from CUDA-graph replays against the eager call,
+    beside its weight-read bound: the dense expert products read every
+    expert's weights each step, as the reference's einsums do, so the
+    bound is every weight but the embedding table (8 rows of it) over the
+    memory rate."""
+    B, bs, nb = 8, 16, 8
+    cache = model.init_paged_cache(B * nb, bs, torch.bfloat16, "cuda")
+    bt = torch.arange(B * nb, dtype=torch.int32, device="cuda").reshape(B, nb)
+    tokens = torch.arange(B, dtype=torch.int32, device="cuda")
+    lengths = torch.full((B,), 40, dtype=torch.int32, device="cuda")
+    fn = lambda: model.decode_step_paged(params, cache, tokens, lengths, bt)
+    device = time_ms(fn, iters=3, replays=3)
+    eager = eager_ms(fn, iters=5)
+    nbytes = sum(t.numel() * t.element_size() for name, t in params.items()
+                 if name not in ("embed", "blocks"))
+    nbytes += sum(t.numel() * t.element_size()
+                  for t in _leaves(params["blocks"]))
+    b = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"  [{tag}] {label} decode step (8 x 40, page pool): device "
+        f"{device:.3f} ms, eager {eager:.3f} ms, host share "
+        f"{1 - device / eager:.3f}; weight-read bound {b:.3f} ms "
+        f"({nbytes / 1e9:.2f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), "
+        f"device / bound {device / b:.2f}")
+    del cache
+    torch.cuda.empty_cache()
+
+
+def _differ(runs) -> list:
+    """Index of each request whose two token streams differ, with where."""
+    return [(i, next(j for j, (x, y) in enumerate(zip(a, b)) if x != y))
+            for i, (a, b) in enumerate(zip(*runs)) if a != b]
+
+
+def _drop_counting(model, calls):
+    """``model`` with each serving path appending to ``calls``, per call,
+    its kind and the (token, choice) pairs its MoE layers dropped for
+    capacity, summed over the layers, per row of its batch (B, L), zero on
+    rows that hold no real token (a chunk round's rows at or past valid).
+    Reads the keep masks that ``_dispatch_slots`` gives inside
+    ``_keeps_recorded``."""
+    k = model.cfg.moe.experts_per_token
+
+    def rec(name, fn):
+        def run(*args):
+            del _KEEPS[:]
+            out = fn(*args)
+            tokens = args[1]["tokens"] if name == "prefill" else args[2]
+            B, L = tokens.shape[0], (tokens.shape[1] if tokens.dim() == 2
+                                     else 1)
+            drops = (~torch.cat(_KEEPS)).view(-1, B * L, k).sum((0, 2))
+            drops = drops.view(B, L)
+            if name.startswith("prefill_chunk"):
+                drops = drops * (torch.arange(L, device=drops.device)[None]
+                                 < args[4][:, None])
+            calls.append((name, drops))
+            return out
+        return run
+    return dataclasses.replace(model, **{
+        name: rec(name, getattr(model, name)) for name in (
+            "prefill", "prefill_chunk", "decode_step", "prefill_chunk_paged",
+            "decode_step_paged") if getattr(model, name) is not None})
+
+
+_KEEPS = []
+
+
+@contextlib.contextmanager
+def _keeps_recorded():
+    """Within: every ``moe._dispatch_slots`` call appends its keep mask
+    (device tensor, no sync) to _KEEPS."""
+    from repro_torch.models import moe
+
+    dispatch = moe._dispatch_slots
+
+    def recorded(*args):
+        keep, slot = dispatch(*args)
+        _KEEPS.append(keep)
+        return keep, slot
+
+    moe._dispatch_slots = recorded
+    try:
+        yield
+    finally:
+        moe._dispatch_slots = dispatch
+        del _KEEPS[:]
+
+
+def moe_drops(label, runs, n) -> list:
+    """Each request's dropped (token, choice) pairs in each of ``runs``
+    (label, calls of ``_drop_counting``), logged with each run's first
+    prefill: a chunk round's row b and a decode step's row b are slot b,
+    which request b holds (all were admitted at once into an empty
+    engine); the single-shot prefills come one a request, in admission
+    order.  Returns the per-request totals of each run."""
+    totals = []
+    for run, calls in runs:
+        per = [0] * n
+        shots = 0
+        for name, drops in calls:
+            rows = drops.sum(1).tolist()
+            if name == "prefill":
+                per[shots] += int(rows[0])
+                shots += 1
+            else:
+                for b in range(min(n, len(rows))):
+                    per[b] += int(rows[b])
+        first = calls[0][1]
+        log(f"  [moe-vlm] {label} {run}: first prefill ({calls[0][0]}, "
+            f"batch {tuple(first.shape)}) dropped {int(first.sum())} "
+            f"(token, choice) pairs on its real rows; dropped pairs a "
+            f"request over the run (prefill and decode): {per}")
+        totals.append(per)
+    return totals
+
+
+def qwen3_runs(tag, arch, cfg, model, params, prompts, paged) -> None:
+    """qwen3-moe's serve runs: 8 requests chunked (32 tokens) on the page
+    pool, twice (tokens bitwise equal: the MoE combine is ordered, no
+    atomics), and through the single-shot prefill on the dense backend,
+    each logging the (token, choice) pairs its MoE layers dropped for
+    capacity.  With capacity-bounded routing a token's experts depend on
+    every token routed beside it (a 32-token chunk round of 8 rows routes
+    256 tokens at capacity 20, a single-shot prefill of L tokens L at
+    capacity 8), so those two runs may part without a near tie, and are
+    not gated.  Then both again with the capacity unbounded
+    (``capacity_factor`` E / k: capacity T, no pair can drop, which the
+    counts confirm): there a token's output depends on its own routing
+    only, and the runs may part only at near ties (``check_partings``)."""
+    from repro_torch.models import build_model
+
+    def runs(label, m):
+        calls = [[], []]
+        with _keeps_recorded():
+            out = [dense_family_run(f"{arch} paged-cuda chunked{label}",
+                                    _drop_counting(m, calls[0]), params,
+                                    "paged-cuda", 32, paged, prompts,
+                                    tag=tag),
+                   dense_family_run(f"{arch} cuda single-shot{label}",
+                                    _drop_counting(m, calls[1]), params,
+                                    "cuda", 0, ("decode_attention",),
+                                    prompts, tag=tag)]
+        drops = moe_drops(f"{arch}{label}", [
+            ("paged-cuda chunked", calls[0]),
+            ("cuda single-shot", calls[1])], len(prompts))
+        return out, drops
+
+    (chunked, single), drops = runs("", model)
+    replay = dense_family_run(f"{arch} paged-cuda chunked (replay)", model,
+                              params, "paged-cuda", 32, paged, prompts,
+                              tag=tag)
+    check(replay == chunked,
+          f"{arch}: a replay of the chunked run gave other tokens")
+    parts = _differ([chunked, single])
+    log(f"  [{tag}] {arch}: chunked replay tokens equal; chunked page-pool "
+        f"vs single-shot dense tokens equal in "
+        f"{len(prompts) - len(parts)} of {len(prompts)} requests; "
+        f"(request, first differing token, dropped pairs chunked / "
+        f"single-shot) {[(i, j, drops[0][i], drops[1][i]) for i, j in parts]}"
+        f": not gated, capacity-bounded routing depends on the batch")
+    moe = cfg.moe
+    unbounded = build_model(dataclasses.replace(cfg, moe=dataclasses.replace(
+        moe, capacity_factor=moe.num_experts / moe.experts_per_token)))
+    u_runs, u_drops = runs(", capacity unbounded", unbounded)
+    check(not any(map(any, u_drops)),
+          f"{arch}: pairs dropped at unbounded capacity: {u_drops}")
+    found = check_partings(f"{arch} capacity unbounded", unbounded, params,
+                           list(zip(prompts, *u_runs)))
+    log(f"  [{tag}] {arch}, capacity unbounded: chunked page-pool vs "
+        f"single-shot dense tokens: {len(prompts) - len(found)} of "
+        f"{len(prompts)} equal, {len(found)} part at near ties")
+
+
+def moe_vlm_phase() -> None:
+    """qwen3-moe-30b-a3b (whole), dbrx-132b and llava-next-34b (full width,
+    depth cut), bf16, one after the other, each freed before the next:
+    the attention kernels at their shapes (GQA groups 8, 6, 7; head_dim
+    128) against their plain versions, timed; then their serve paths with
+    the launch counts set to 0 just before and read just after, each
+    kernel exactly once a layer per decode step and chunk round.
+
+    qwen3-moe: ``qwen3_runs``, chunked on the page pool and single-shot on
+    the dense backend, at the config's capacity and unbounded.  dbrx: the
+    same 8 requests chunked on float and on int8 pages.  llava: 4 requests with random patch embeddings through
+    ``admit(..., extras=...)`` on the dense backend, single-shot; the page
+    pool refuses them."""
+    from repro_torch.core.request import Request
+    from repro_torch.models import build_model
+    from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
+
+    tag = "moe-vlm"
+    rng = np.random.default_rng(7)
+    for seed, arch in enumerate(MOE_VLM):
+        t0 = time.monotonic()
+        cfg, model, params, gen = _init_cut(arch, seed, tag)
+        extras = None
+        vocab = cfg.vocab_size
+        if cfg.vision is None:
+            prompts = [rng.integers(0, vocab, size=int(n)).tolist()
+                       for n in rng.integers(4, 60, size=8)]
+        else:
+            prompts = [rng.integers(0, vocab, size=int(n)).tolist()
+                       for n in rng.integers(4, 60, size=4)]
+        paged = ("paged_decode_attention", "paged_prefill_attention")
+        if arch == "qwen3-moe-30b-a3b":
+            dense_family_kernels(cfg, False, tag)
+            qwen3_runs(tag, arch, cfg, model, params, prompts, paged)
+            moe_step_timing(tag, arch, model, params)
+        elif arch == "dbrx-132b":
+            dense_family_kernels(cfg, True, tag)
+            dense_family_run(f"{arch} paged-cuda chunked", model, params,
+                             "paged-cuda", 32, paged, prompts, tag=tag)
+            qmodel = build_model(dataclasses.replace(cfg, kv_quant=True))
+            dense_family_run(f"{arch} int8 paged-cuda chunked", qmodel,
+                             params, "paged-cuda", 32,
+                             ("paged_decode_attention_quant",
+                              "paged_prefill_attention_quant"), prompts,
+                             tag=tag)
+            moe_step_timing(tag, arch, model, params)
+        else:
+            P = cfg.vision.num_patch_tokens
+            dense_family_kernels(cfg, False, tag, dense_lengths=[
+                P + 20, P + 75, P, 0, VLM_MAX_SEQ, 1, P + 119, P + 4])
+            extras = [{"patch_embeds": torch.randn(
+                (P, cfg.d_model), generator=gen, device="cuda"
+            ).mul_(0.02).to(torch.bfloat16)} for _ in prompts]
+            out = dense_family_run(
+                f"{arch} cuda single-shot with patch embeddings", model,
+                params, "cuda", 32, ("decode_attention",), prompts, tag=tag,
+                max_seq_len=VLM_MAX_SEQ, extras=extras)
+            log(f"  [{tag}] {arch}: first tokens "
+                f"{[t[:4] for t in out]}; memory_allocated "
+                f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, peak "
+                f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+            pool = ContinuousBatchingEngine(model, params, EngineConfig(
+                max_slots=1, max_seq_len=64, block_size=16, kv_blocks=4,
+                attention_backend="paged-cuda", dtype=torch.bfloat16,
+                device="cuda"), model_name="m")
+            r = Request(prompt_tokens=prompts[0], model="m", slo=1e9,
+                        max_new_tokens=4)
+            r.extras = extras[0]
+            check(not pool.can_admit(r), f"{arch}: the page pool took "
+                                         f"a request with extras")
+            try:
+                pool.admit(Request(prompt_tokens=prompts[0], model="m",
+                                   slo=1e9, max_new_tokens=4),
+                           extras=extras[0])
+                refused = False
+            except ValueError:
+                refused = True
+            check(refused, f"{arch}: paged admit(extras=...) did not raise")
+            log(f"  [{tag}] {arch}: paged-cuda refuses the request with "
+                f"patch embeddings (can_admit false, admit ValueError)")
+            del pool
+        del model, params, extras
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        log(f"  [{tag}] {arch} in {time.monotonic() - t0:.1f} s")
+
+
+def hetero_phase() -> None:
+    """``serve --hetero --threaded`` over 3 instances on full-width
+    granite-3-2b (bf16, page pool), launch counts set to 0 just before and
+    read just after: the three tiers (slots x2 / x1 / x0.5, decode burst
+    4 / 2 / 1) each calibrated once, every request terminal, no page
+    leaked, only the two float paged kernels launched."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+
+    model = build_model(get_arch(GRANITE))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    registry = {GRANITE: (model, model.init(gen, torch.bfloat16, "cuda"))}
+    args = argparse.Namespace(**{**vars(SERVE_ARGS), "hetero": True,
+                                 "threaded": True, "instances": 3})
+    tiers = []
+    calibrate = serve.calibrate_registry
+
+    def counting(reg, ecfg):
+        tiers.append((ecfg.max_slots, ecfg.decode_burst))
+        return calibrate(reg, ecfg)
+
+    serve.calibrate_registry = counting
+    np.random.seed(0)                # calibrate_from_engine's prompts
+    try:
+        reset_launches()
+        stats, seen, engines = serve.run_threaded(args, registry, [GRANITE])
+        launches = read_launches()
+    finally:
+        serve.calibrate_registry = calibrate
+    log(f"  [hetero] tier calibrations (max_slots, decode_burst): {tiers}; "
+        f"engines' slots {[e.cfg.max_slots for e in engines]}, bursts "
+        f"{[e.cfg.decode_burst for e in engines]}, rounds "
+        f"{stats['engine_rounds']}, tokens "
+        f"{[e.stats.tokens_generated for e in engines]}")
+    log("  [hetero] summarize: " + json.dumps(stats))
+    check(tiers == [(16, 4), (8, 2), (4, 1)], f"hetero tiers {tiers}")
+    check(len(seen) == 8 and all(_terminal(r) for r in seen),
+          "hetero: a request is not terminal")
+    check(stats["served"] >= 1, f"hetero: nothing served: {stats}")
+    check(all(e.block_mgr.used_blocks == 0 for e in engines),
+          "hetero: KV blocks leaked")
+    _expect_launches("hetero", launches)
+    del registry, engines
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 LOGIT_TOL = 1e-3
 
 
@@ -2112,9 +2544,11 @@ def reference_phase() -> None:
     (prompts up to 84 tokens, window 64) and for mamba2 (single-shot
     prefill through the SSD kernel); qwen1.5-32b (QKV bias, group 1) on
     the page pool and deepseek-67b (group 8) on the dense backend, both at
-    head_dim 128.  Attention
-    runs in float must give identical tokens; mamba2's may part only at a
-    near tie, as an int8 run may.  An int8 run may part
+    head_dim 128; reduced qwen3-moe on the page pool and on the dense
+    backend through the single-shot prefill, and reduced llava with patch
+    embeddings on the dense backend (groups 8 and 7, head_dim 128).
+    Attention runs in float must give identical tokens; mamba2's may part
+    only at a near tie, as an int8 run may.  An int8 run may part
     from the CPU's at a near tie: the two devices' f32 projections differ
     in the last bits, which can put one value on the other side of an int8
     rounding boundary, a one-step change that moves the logits by ~1e-4;
@@ -2135,6 +2569,11 @@ def reference_phase() -> None:
                                                 num_heads=8, num_kv_heads=1)
     danube = get_arch(DANUBE).reduced(**small)
     mamba = get_arch(MAMBA).reduced(num_layers=2, d_model=256)
+    # MoE and VLM at their groups (8 and 7) and head_dim 128
+    qwen3 = get_arch("qwen3-moe-30b-a3b").reduced(
+        num_layers=2, d_model=1024, num_heads=8, num_kv_heads=1)
+    llava = get_arch("llava-next-34b").reduced(
+        num_layers=2, d_model=896, num_heads=7, num_kv_heads=1)
     check(danube.sliding_window == 64, "reduced h2o-danube window")
     rng = np.random.default_rng(2)
     common = rng.integers(0, 100, size=24).tolist()
@@ -2150,6 +2589,11 @@ def reference_phase() -> None:
             ("h2o-danube, dense rolling window", danube, "cuda", 16),
             ("qwen1.5-32b, page pool", qwen, "paged-cuda", 16),
             ("deepseek-67b, dense", deepseek, "cuda", 16),
+            ("qwen3-moe-30b-a3b, page pool", qwen3, "paged-cuda", 16),
+            ("qwen3-moe-30b-a3b, dense single-shot prefill", qwen3, "cuda",
+             0),
+            ("llava-next-34b, dense with patch embeddings", llava, "cuda",
+             16),
             ("mamba2, dense single-shot prefill", mamba, "cuda", 16)):
         model = build_model(cfg)
         gen = torch.Generator(device="cuda")
@@ -2159,6 +2603,11 @@ def reference_phase() -> None:
             for bp in params["blocks"]:
                 for b in ("bq", "bk", "bv"):
                     bp["attn"][b].normal_(0.0, 0.5, generator=gen)
+        patches = [None] * len(prompts)
+        if cfg.vision is not None:     # the same embeddings on both devices
+            patches = [{"patch_embeds": (0.02 * rng.standard_normal(
+                (cfg.vision.num_patch_tokens, cfg.d_model))).astype(
+                    np.float32)} for _ in prompts]
         outs = []
         for device, p in (("cuda", params),
                           ("cpu", _to_device(params, "cpu"))):
@@ -2171,7 +2620,8 @@ def reference_phase() -> None:
                     attention_backend=backend, debug_invariants=True),
                 model_name="m")
             reqs = [Request(prompt_tokens=pr, model="m", slo=1e9,
-                            max_new_tokens=12) for pr in prompts]
+                            max_new_tokens=12, extras=ex)
+                    for pr, ex in zip(prompts, patches)]
             first_admitted = eng.admit(reqs[0])
             while eng.prefilling_slots():
                 eng.steps()
@@ -2408,13 +2858,13 @@ def kernel_timings(src: Path) -> int:
     for quant in (False, True):
         name = "paged_prefill_attention" + ("_quant" if quant else "")
         fn, _ = kernel_fns(name)
-        for label, args, rows in (
+        for label, args in (
                 ("serving", prefill_case(rng, gen, dtype, [0] * B,
                                          valid.tolist(), C, quant, nb=nb,
-                                         N=N), valid.tolist()),
+                                         N=N)),
                 ("4 x 2048", prefill_case(rng, gen, dtype, [2048] * 4,
-                                          [128] * 4, 128, quant), [128] * 4)):
-            err = check_case(failures, name, dtype, label, args, rows)
+                                          [128] * 4, 128, quant))):
+            err = check_case(failures, name, dtype, label, args)
             rec = {"ms": time_ms(lambda: fn(*args)), "max_abs_err": err}
             if quant:
                 rec["two_call_ms"] = time_ms(prefill_two_calls(args, dtype))
@@ -2608,6 +3058,17 @@ def main() -> int:
     t0 = time.monotonic()
     dense_family_phase()
     log(f"[dense-family] ok in {time.monotonic() - t0:.1f} s")
+
+    log(f"[moe-vlm] {', '.join(MOE_VLM)}: full width, layers "
+        f"{MOE_VLM_LAYERS}, bf16")
+    t0 = time.monotonic()
+    moe_vlm_phase()
+    log(f"[moe-vlm] ok in {time.monotonic() - t0:.1f} s")
+
+    log("[hetero] serve --hetero --threaded, 3 instances, granite-3-2b")
+    t0 = time.monotonic()
+    hetero_phase()
+    log(f"[hetero] ok in {time.monotonic() - t0:.1f} s")
 
     log("[reference] cuda engine vs cpu engine, reduced models, float32")
     t0 = time.monotonic()

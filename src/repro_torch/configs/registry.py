@@ -5,15 +5,19 @@ from __future__ import annotations
 from typing import Dict
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.dbrx_132b import CONFIG as DBRX_132B
 from repro_torch.configs.deepseek_67b import CONFIG as DEEPSEEK_67B
 from repro_torch.configs.granite_3_2b import CONFIG as GRANITE_3_2B
 from repro_torch.configs.h2o_danube_1_8b import CONFIG as H2O_DANUBE_1_8B
+from repro_torch.configs.llava_next_34b import CONFIG as LLAVA_NEXT_34B
 from repro_torch.configs.mamba2_130m import CONFIG as MAMBA2_130M
 from repro_torch.configs.qwen1_5_32b import CONFIG as QWEN1_5_32B
+from repro_torch.configs.qwen3_moe_30b_a3b import CONFIG as QWEN3_MOE_30B_A3B
 
 ARCHITECTURES: Dict[str, ModelConfig] = {
-    c.name: c for c in (GRANITE_3_2B, H2O_DANUBE_1_8B, DEEPSEEK_67B,
-                        QWEN1_5_32B, MAMBA2_130M)}
+    c.name: c for c in (GRANITE_3_2B, QWEN3_MOE_30B_A3B, H2O_DANUBE_1_8B,
+                        DEEPSEEK_67B, QWEN1_5_32B, MAMBA2_130M,
+                        LLAVA_NEXT_34B, DBRX_132B)}
 
 
 def get_arch(name: str) -> ModelConfig:

@@ -21,8 +21,12 @@
 //
 // Every prefix position < starts[b] is visible to every chunk query; chunk
 // key j is visible to query c iff j <= c and j < valid[b].  Rows at or past
-// valid[b] are garbage the caller ignores; q tiles that start at or past
-// valid[b] (all of a valid == 0 row) write 0 and read nothing.
+// valid[b] follow the same rule (an MoE layer routes them, so they must be
+// the plain version's) up to the end of the reference kernel's q tile that
+// holds row valid[b] - 1 (``qt`` rows a tile, from the wrapper's
+// ``reference_q_tile``); every row from there on, all of a valid == 0 row,
+// is written 0.  Those zeros follow the reference's tiling, not this
+// kernel's: a CUDA q tile may hold rows on both sides of that end.
 //
 // Bound on the H100: at long context the products, 4 flops per (query
 // head, visible key, dimension), against the live prefix KV (2 *
@@ -134,7 +138,9 @@ struct Int8Prefix {
 };
 
 // ``vec``: the float rows (the chunk's, and the float prefix pages) go by
-// 16-byte cp.async; ``qvec``: the int8 twin's copy mode (int8_vec).
+// 16-byte cp.async; ``qvec``: the int8 twin's copy mode (int8_vec); ``qt``:
+// query rows per q tile of the reference's Pallas kernel, which zeroes its
+// tiles that start at or past valid[b].
 template <typename T, int Dp, typename Prefix>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     prefill_mma_kernel(const T* __restrict__ q, Prefix prefix,
@@ -144,7 +150,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                        const int* __restrict__ starts,
                        const int* __restrict__ valid, T* __restrict__ out,
                        int H, int KVH, int C, int D, int N, int bs, int nb,
-                       int TQ, int vec, int qvec) {
+                       int TQ, int vec, int qvec, int qt) {
   using S = typename Prefix::template Smem<Dp>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int c0 = blockIdx.x * TQ;  // first chunk position of this q tile
@@ -154,18 +160,22 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const int rows = G * TQ;  // row r: head kvh * G + r / TQ, position c0 + r % TQ
   const int vd = min(valid[b], C);
   const size_t head0 = (size_t)b * H + (size_t)kvh * G;
+  // rows at or past live_end are zeros; below it every row is computed
+  const int live_end = vd <= 0 ? 0 : min(C, (vd + qt - 1) / qt * qt);
 
-  if (c0 >= vd) {
+  if (c0 + TQ > live_end) {
     const T z = from_float<T>(0.f);
     for (int e = threadIdx.x; e < rows * D; e += kThreads) {
       const int r = e / D;
       const int c = c0 + r % TQ;
-      if (c < C) out[((head0 + r / TQ) * C + c) * D + e % D] = z;
+      if (c >= live_end && c < C)
+        out[((head0 + r / TQ) * C + c) * D + e % D] = z;
     }
-    return;
+    if (c0 >= live_end) return;
   }
 
-  const RowPair rp(head0, rows, TQ, c0, C);
+  // a row past live_end is not live: it loads no q and writes nothing
+  const RowPair rp(head0, rows, TQ, c0, live_end);
   Mma<T, Dp> mma;
   mma.load_q(reinterpret_cast<uint32_t*>(smem_raw + S::kRing),
              rp.live[0] ? q + (rp.head[0] * C + rp.pos[0]) * D : nullptr,
@@ -238,9 +248,10 @@ int launch_prefill(const void* q, const Prefix& prefix, const void* chunk_k,
                    const void* chunk_v, const int* block_table,
                    const int* starts, const int* valid, void* out, int B,
                    int H, int KVH, int C, int D, int N, int bs, int nb, int vec,
-                   int qvec, int TQ, int Dp, int smem, cudaStream_t stream) {
+                   int qvec, int TQ, int qt, int Dp, int smem,
+                   cudaStream_t stream) {
   if (B < 1 || KVH < 1 || H < 1 || H % KVH != 0 || C < 1 || N < 1 ||
-      bs < 1 || nb < 1 || TQ < 1 || (H / KVH) * TQ > kRows ||
+      bs < 1 || nb < 1 || TQ < 1 || qt < 1 || (H / KVH) * TQ > kRows ||
       !valid_d_pad(D, Dp))
     return (int)cudaErrorInvalidValue;
   return with_d_pad(Dp, [&](auto dp) {
@@ -254,7 +265,7 @@ int launch_prefill(const void* q, const Prefix& prefix, const void* chunk_k,
     kernel<<<grid, kThreads, smem, stream>>>(
         (const T*)q, prefix, (const T*)chunk_k, (const T*)chunk_v,
         block_table, starts, valid, (T*)out, H, KVH, C, D, N, bs, nb, TQ, vec,
-        qvec);
+        qvec, qt);
     return (int)cudaGetLastError();
   });
 }
@@ -263,13 +274,13 @@ template <typename T>
 int prefill_float(const void* q, const void* k_pages, const void* v_pages,
                   const void* chunk_k, const void* chunk_v, const int* bt,
                   const int* st, const int* vd, void* out, int B, int H,
-                  int KVH, int C, int D, int N, int bs, int nb, int TQ, int Dp,
-                  int smem, cudaStream_t s) {
+                  int KVH, int C, int D, int N, int bs, int nb, int TQ,
+                  int qt, int Dp, int smem, cudaStream_t s) {
   const void* rows[] = {k_pages, v_pages, chunk_k, chunk_v};
   return launch_prefill<T>(
       q, FloatPrefix<T>{(const T*)k_pages, (const T*)v_pages}, chunk_k,
       chunk_v, bt, st, vd, out, B, H, KVH, C, D, N, bs, nb,
-      rows_aligned(D, sizeof(T), rows, 4), 0, TQ, Dp, smem, s);
+      rows_aligned(D, sizeof(T), rows, 4), 0, TQ, qt, Dp, smem, s);
 }
 
 template <typename T>
@@ -277,7 +288,7 @@ int prefill_int8(const void* q, const void* k_pages, const void* v_pages,
                  const void* k_scale, const void* v_scale, const void* chunk_k,
                  const void* chunk_v, const int* bt, const int* st,
                  const int* vd, void* out, int B, int H, int KVH, int C, int D,
-                 int N, int bs, int nb, int TQ, int Dp, int smem,
+                 int N, int bs, int nb, int TQ, int qt, int Dp, int smem,
                  cudaStream_t s) {
   const Int8Prefix<T> prefix{(const int8_t*)k_pages, (const int8_t*)v_pages,
                              (const T*)k_scale, (const T*)v_scale};
@@ -285,21 +296,22 @@ int prefill_int8(const void* q, const void* k_pages, const void* v_pages,
   return launch_prefill<T>(
       q, prefix, chunk_k, chunk_v, bt, st, vd, out, B, H, KVH, C, D, N, bs,
       nb, rows_aligned(D, sizeof(T), rows, 2),
-      int8_vec(D, prefix.k, prefix.v, prefix.ks, prefix.vs, bs), TQ, Dp, smem,
-      s);
+      int8_vec(D, prefix.k, prefix.v, prefix.ks, prefix.vs, bs), TQ, qt, Dp,
+      smem, s);
 }
 
 }  // namespace mma_attn
 
 // dtype: 0 = float32, 1 = bfloat16; TQ, Dp, smem: the launch plan
-// (kernels/common.py::attention_plan).  Returns a cudaError_t (0 =
-// launched).
+// (kernels/common.py::attention_plan); qt: the reference's q tile
+// (paged_prefill_attention.py::reference_q_tile).  Returns a cudaError_t
+// (0 = launched).
 extern "C" int paged_prefill_attention(
     const void* q, const void* k_pages, const void* v_pages,
     const void* chunk_k, const void* chunk_v, const void* block_table,
     const void* starts, const void* valid, void* out, int B, int H, int KVH,
-    int C, int D, int N, int bs, int nb, int dtype, int TQ, int Dp, int smem,
-    void* stream) {
+    int C, int D, int N, int bs, int nb, int dtype, int TQ, int qt, int Dp,
+    int smem, void* stream) {
   using namespace mma_attn;
   const int* bt = (const int*)block_table;
   const int* st = (const int*)starts;
@@ -307,24 +319,25 @@ extern "C" int paged_prefill_attention(
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return prefill_float<float>(q, k_pages, v_pages, chunk_k, chunk_v, bt, st,
-                                vd, out, B, H, KVH, C, D, N, bs, nb, TQ, Dp,
-                                smem, s);
+                                vd, out, B, H, KVH, C, D, N, bs, nb, TQ, qt,
+                                Dp, smem, s);
   if (dtype == 1)
     return prefill_float<__nv_bfloat16>(q, k_pages, v_pages, chunk_k, chunk_v,
                                         bt, st, vd, out, B, H, KVH, C, D, N,
-                                        bs, nb, TQ, Dp, smem, s);
+                                        bs, nb, TQ, qt, Dp, smem, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // int8 pages, float chunk k/v; dtype (of q, the scales, the chunk and out):
 // 0 = float32, 1 = bfloat16; TQ, Dp, smem: the launch plan
-// (kernels/common.py::attention_plan with quant).
+// (kernels/common.py::attention_plan with quant); qt: as above.
 extern "C" int paged_prefill_attention_quant(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scale, const void* v_scale, const void* chunk_k,
     const void* chunk_v, const void* block_table, const void* starts,
     const void* valid, void* out, int B, int H, int KVH, int C, int D, int N,
-    int bs, int nb, int dtype, int TQ, int Dp, int smem, void* stream) {
+    int bs, int nb, int dtype, int TQ, int qt, int Dp, int smem,
+    void* stream) {
   using namespace mma_attn;
   const int* bt = (const int*)block_table;
   const int* st = (const int*)starts;
@@ -333,11 +346,12 @@ extern "C" int paged_prefill_attention_quant(
   if (dtype == 0)
     return prefill_int8<float>(q, k_pages, v_pages, k_scale, v_scale, chunk_k,
                                chunk_v, bt, st, vd, out, B, H, KVH, C, D, N,
-                               bs, nb, TQ, Dp, smem, s);
+                               bs, nb, TQ, qt, Dp, smem, s);
   if (dtype == 1)
     return prefill_int8<__nv_bfloat16>(q, k_pages, v_pages, k_scale, v_scale,
                                        chunk_k, chunk_v, bt, st, vd, out, B, H,
-                                       KVH, C, D, N, bs, nb, TQ, Dp, smem, s);
+                                       KVH, C, D, N, bs, nb, TQ, qt, Dp,
+                                       smem, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -22,7 +22,14 @@ of ``csrc/paged_prefill_attention.cu`` (``sm_90a``), bound through
 
 Every prefix position < starts[b] is visible to every chunk query; chunk
 key j is visible to query c iff j <= c and j < valid[b].  Rows at or past
-valid[b] are garbage the caller ignores, as in the TPU kernel.
+valid[b] follow the same rule, as in the TPU kernel, whose q tiles that
+start at or past valid[b] give zeros (``live_rows``: a chunk of up to 128
+rows is one tile there, so only an inactive row is zero; a longer chunk
+zeroes every row from the end of the tile that holds row valid[b] - 1).
+Callers of a dense model ignore those rows, but an MoE layer routes them,
+and they use expert capacity: the kernel and its plain version give them
+the same values.  The wrappers pass ``reference_q_tile(C)`` to the kernel,
+which keeps no copy of that tiling.
 
 What bounds it on the H100 is the bytes it reads: the live prefix KV,
 ``2 * sum(starts) * KVH * D`` elements, plus q, the chunk's k/v and the
@@ -61,12 +68,31 @@ launches = 0
 quant_launches = 0
 
 
+def reference_q_tile(C: int) -> int:
+    """Query rows per q tile of the reference's Pallas kernel
+    (``auto_q_tile``): a chunk of up to 128 rows is one tile, a longer one
+    the largest divisor in (16, 128], else one tile."""
+    if C <= 128:
+        return C
+    return next((t for t in range(128, 16, -1) if C % t == 0), C)
+
+
+def live_rows(C: int, valid: torch.Tensor) -> torch.Tensor:
+    """(B,) the rows each sequence computes: those of the reference
+    kernel's q tiles that start below ``valid`` (padding rows included,
+    which an MoE layer routes); the rest are zeros, as there."""
+    qt = reference_q_tile(C)
+    vd = valid.long().clamp(0, C)
+    return torch.where(vd > 0, ((vd + qt - 1) // qt * qt).clamp(max=C), 0)
+
+
 def _prefill_plain(q: torch.Tensor, k_prefix: torch.Tensor,
                    v_prefix: torch.Tensor, chunk_k: torch.Tensor,
                    chunk_v: torch.Tensor, starts: torch.Tensor,
                    valid: torch.Tensor) -> torch.Tensor:
     """Both segments in f32: the dense prefix (B, KVH, S, D), masked to
-    positions < starts, then the chunk's keys, causal and < valid."""
+    positions < starts, then the chunk's keys, causal and < valid; rows
+    past ``live_rows`` zero."""
     B, H, C, D = q.shape
     KVH, S = k_prefix.shape[1], k_prefix.shape[2]
     G = H // KVH
@@ -84,8 +110,9 @@ def _prefill_plain(q: torch.Tensor, k_prefix: torch.Tensor,
     chunk = (c[None, :] <= c[:, None])[None] \
         & (c[None, None, :] < valid[:, None, None])             # (B, C, C)
     mask = torch.cat([prefix, chunk], dim=-1)[:, None, None]   # (B,1,1,C,S+C)
-    out = masked_softmax_attend(s, mask, v[:, :, None])
-    return out.reshape(B, H, C, D).to(q.dtype)
+    out = masked_softmax_attend(s, mask, v[:, :, None]).reshape(B, H, C, D)
+    live = c[None, :] < live_rows(C, valid)[:, None]            # (B, C)
+    return (out * live[:, None, :, None]).to(q.dtype)
 
 
 def paged_prefill_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
@@ -174,8 +201,8 @@ def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
     launch("paged_prefill_attention", "paged_prefill_attention", q.device,
            [q, k_pages, v_pages, chunk_k, chunk_v, block_table, starts, valid,
             out],
-           [B, H, KVH, C, D, N, bs, nb, dtype, plan.tile_q, plan.d_pad,
-            plan.smem_bytes])
+           [B, H, KVH, C, D, N, bs, nb, dtype, plan.tile_q,
+            reference_q_tile(C), plan.d_pad, plan.smem_bytes])
     launches += 1
     return out
 
@@ -221,7 +248,7 @@ def paged_prefill_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
            q.device,
            [q, k_pages, v_pages, k_scale, v_scale, chunk_k, chunk_v,
             block_table, starts, valid, out],
-           [B, H, KVH, C, D, N, bs, nb, dtype, plan.tile_q, plan.d_pad,
-            plan.smem_bytes])
+           [B, H, KVH, C, D, N, bs, nb, dtype, plan.tile_q,
+            reference_q_tile(C), plan.d_pad, plan.smem_bytes])
     quant_launches += 1
     return out

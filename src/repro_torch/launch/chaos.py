@@ -52,8 +52,8 @@ tick double-checks the block/queue/terminal-state invariants:
 
 The soak serves ``--arch`` reduced to 1 layer of width 64 (weights from a
 ``torch.Generator`` seeded with ``--seed``), or the weights a caller
-passes to ``run_soak`` / ``check_soak``.  ``--hetero`` is not ported (it
-needs the sharding rules).
+passes to ``run_soak`` / ``check_soak``.  ``--hetero`` gives instance i
+the fast / mid / slow static profile of tier ``i % 3`` (``_hw``).
 """
 from __future__ import annotations
 
@@ -105,12 +105,21 @@ class VirtualClock:
         return self.t
 
 
-def _hw(max_new: int) -> HardwareProfile:
+def _hw(max_new: int, tier: Optional[int] = None) -> HardwareProfile:
     # static profile (no calibration pass): the soak measures recovery
-    # behavior, not scheduling quality, and static costs keep it seeded
-    # (the reference's --hetero tiers wait for the sharding rules)
-    return HardwareProfile(prefill_time=0.05, decode_per_token=0.02,
-                           inefficiency=1.2, token_capacity=512,
+    # behavior, not scheduling quality, and static costs keep it seeded.
+    # --hetero assigns instance i the fast/mid/slow tier (i % 3) so the
+    # scheduler's drain/swap estimates differ per instance.  The spread
+    # is deliberately mild (2x end to end): every staged fault needs its
+    # target engine to carry real work (a starved engine neither stalls
+    # visibly, nor decodes enough to reach its crash occurrence, nor
+    # holds sharers to migrate on drain), and a steeper spread lets the
+    # solver serve the whole soak workload from the fastest tier alone.
+    scale = 1.0 if tier is None else (0.75, 1.0, 1.5)[tier % 3]
+    return HardwareProfile(prefill_time=0.05 * scale,
+                           decode_per_token=0.02 * scale,
+                           inefficiency=1.2,
+                           token_capacity=int(512 / scale),
                            swap_time=0.2, model_max_tokens=max(64, max_new))
 
 
@@ -158,9 +167,7 @@ def build_cluster(args, plan: FaultPlan, registry: Optional[dict] = None):
     built and loaded here: a build inside a wall-clock round would read
     as a hang."""
     import time as _time
-    if getattr(args, "hetero", False):
-        raise NotImplementedError(
-            "--hetero needs the sharding rules, which are not ported yet")
+    hetero = bool(getattr(args, "hetero", False))
     registry = build_registry(args) if registry is None else registry
     model, params = registry[args.arch]
     dtype = params["embed"].dtype
@@ -190,8 +197,8 @@ def build_cluster(args, plan: FaultPlan, registry: Optional[dict] = None):
         vq = VirtualQueue(i)
         agents.append(QLMAgent(eng, vq, registry))
         engines.append(eng)
-        infos.append(InstanceInfo(i, {args.arch: _hw(args.max_new_tokens)},
-                                  args.arch, vq))
+        hw = _hw(args.max_new_tokens, tier=i if hetero else None)
+        infos.append(InstanceInfo(i, {args.arch: hw}, args.arch, vq))
     scenario = getattr(args, "scenario", "kill")
     grace = getattr(args, "hang_grace", None)
     if grace is None and scenario in ("hang", "combined"):
@@ -707,7 +714,8 @@ def main(argv=None) -> int:
                          "(ThreadedCluster) instead of the seeded "
                          "virtual-clock round-robin")
     ap.add_argument("--hetero", action="store_true",
-                    help="heterogeneous static profiles (not ported)")
+                    help="heterogeneous static profiles: instance i gets "
+                         "the fast/mid/slow tier (i %% 3)")
     ap.add_argument("--routing", default="solver",
                     choices=["solver", "slice"],
                     help="group placement policy (core/routing.py)")

@@ -29,11 +29,17 @@ the card, and each engine's ``prefill_time`` / ``decode_time`` (which end
 in a device-wide synchronise) include the work its neighbours queued
 meanwhile.  Both drivers calibrate the profiles before the wall clock
 starts, which also builds and loads the kernels the engines run.
-``--hetero`` is not ported (it needs the sharding rules).
+``--hetero`` gives instance i the fast / mid / slow tier ``i % 3``
+(``HETERO_TIERS``: slots x2 / x1 / x0.5, decode burst 4 / 2 / 1), each
+tier calibrated on its own throwaway engine.  The reference also places
+the params through its sharding rules there (``shard_registry``), on a
+one-device mesh where every leaf lands replicated; on one card that
+placement changes nothing, so the port leaves it out.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -68,6 +74,23 @@ def build_registry(arch_names, seed: int = 0, device="cuda"):
     return registry
 
 
+# fast / mid / slow capacity tiers for --hetero (instance i -> tier i%3):
+# more slots = bigger batches = higher throughput; wider decode_burst =
+# fewer host round-trips per token.  The tiers are calibrated separately,
+# so the RWT estimator sees genuinely different drain/swap costs.
+HETERO_TIERS = ({"slots_scale": 2.0, "decode_burst": 4},
+                {"slots_scale": 1.0, "decode_burst": 2},
+                {"slots_scale": 0.5, "decode_burst": 1})
+
+
+def hetero_engine_cfg(base: EngineConfig, idx: int) -> EngineConfig:
+    tier = HETERO_TIERS[idx % len(HETERO_TIERS)]
+    return dataclasses.replace(
+        base,
+        max_slots=max(2, int(round(base.max_slots * tier["slots_scale"]))),
+        decode_burst=tier["decode_burst"])
+
+
 def calibrate_registry(registry, ecfg: EngineConfig) -> dict:
     """name -> HardwareProfile, each calibrated on ITS OWN model with one
     throwaway engine."""
@@ -91,25 +114,31 @@ def engine_config(args, dtype: torch.dtype) -> EngineConfig:
 
 
 def build_cluster(args, registry, arch_names):
-    """Engines + agents + controller: one calibration shared by every
-    instance (``--hetero`` tiers are not ported)."""
-    if getattr(args, "hetero", False):
-        raise NotImplementedError(
-            "--hetero needs the sharding rules, which are not ported yet")
-    ecfg = engine_config(args, registry[arch_names[0]][1]["embed"].dtype)
-    hw = calibrate_registry(registry, ecfg)
+    """Engines + agents + controller honoring --hetero and --routing.
+
+    Homogeneous: one calibration shared by every instance.  Hetero: one
+    calibration per TIER (distinct ``(max_slots, decode_burst)``), so each
+    InstanceInfo carries its own per-model profiles and the scheduler's
+    placement is heterogeneity-aware."""
+    base = engine_config(args, registry[arch_names[0]][1]["embed"].dtype)
+    ecfgs = [hetero_engine_cfg(base, i) if getattr(args, "hetero", False)
+             else base for i in range(args.instances)]
+    hw_cache = {}
     engines, agents, infos = [], [], []
-    for i in range(args.instances):
+    for i, ecfg in enumerate(ecfgs):
+        key = (ecfg.max_slots, ecfg.decode_burst)
+        if key not in hw_cache:
+            hw_cache[key] = calibrate_registry(registry, ecfg)
         m0, p0 = registry[arch_names[0]]
         eng = ContinuousBatchingEngine(m0, p0, ecfg, model_name=arch_names[0])
         vq = VirtualQueue(i)
         agents.append(QLMAgent(eng, vq, registry))
         engines.append(eng)
-        infos.append(InstanceInfo(i, dict(hw), eng.model_name, vq))
+        infos.append(InstanceInfo(i, dict(hw_cache[key]), eng.model_name, vq))
     controller = QLMController(infos, QLMConfig(
         avg_batch_size=args.slots,
         routing=getattr(args, "routing", "solver"),
-        debug_invariants=ecfg.debug_invariants))
+        debug_invariants=base.debug_invariants))
     controller.attach_engines(engines)
     return engines, agents, infos, controller
 
@@ -263,7 +292,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--threaded", action="store_true",
                     help="thread-per-engine serve loop (ThreadedCluster)")
     ap.add_argument("--hetero", action="store_true",
-                    help="heterogeneous capacity tiers (not ported)")
+                    help="heterogeneous capacity tiers (fast/mid/slow), "
+                         "each calibrated separately")
     ap.add_argument("--routing", default="solver",
                     choices=["solver", "slice"],
                     help="group placement policy (core/routing.py)")

@@ -6,7 +6,10 @@ arrays — every per-layer leaf stacked on a leading ``layers`` axis for
 ``lax.scan`` — and returns the port's params: the same names, with
 ``"blocks"`` unstacked into one dict per layer; the same for the mamba2
 tree of ``src/repro/models/ssm_lm.py::init_ssm_lm`` (``{"embed",
-"blocks": {"norm", "mamba": {...}}, "final_norm"}``).  Parity tests load
+"blocks": {"norm", "mamba": {...}}, "final_norm"}``).  An MoE block's
+``"moe"`` leaves (the router and the (layers, E, d, F) experts) unstack
+like any other, and a VLM's top-level ``"vision_proj"`` goes across as
+it is.  Parity tests load
 their weights through it, so both frameworks run identical numbers.
 ``to_jax_layout`` is its inverse, for any tree of the params' structure
 (params, gradients, optimizer moments): tests compare gradients through

@@ -1,6 +1,7 @@
 """Model interface of the port (twin of ``src/repro/models/model_factory.py``
-for ``arch_type`` ``"dense"`` (the training loss and the chunked serving
-paths) and ``"ssm"`` (mamba2: single-shot prefill and decode)).
+for ``arch_type`` ``"dense"``, ``"moe"`` and ``"vlm"`` (the transformer:
+the training loss and every serving path) and ``"ssm"`` (mamba2:
+single-shot prefill and decode)).
 
 ``build_model(cfg)`` returns a ``Model`` with:
   * ``init(gen, dtype, device)``  -> params (random, from ``gen``)
@@ -9,7 +10,8 @@ paths) and ``"ssm"`` (mamba2: single-shot prefill and decode)).
     (the SSM's conv and state)
   * ``decode_step(params, cache, tokens, lengths)``
   * ``prefill(params, batch, cache)`` -> (last logits, cache): single-shot
-    prefill of ``batch["tokens"]`` into a dense per-slot cache
+    prefill of ``batch["tokens"]`` (after a VLM's ``batch["patch_embeds"]``)
+    into a dense per-slot cache
   * ``prefill_chunk(params, cache, tokens, starts, valid)``
   * ``init_paged_cache(num_blocks, block_size, dtype, device)`` -> page pools
   * ``prefill_chunk_paged(params, cache, tokens, starts, valid, block_table)``
@@ -18,11 +20,13 @@ The last four are None for the SSM (its state carry needs single-shot
 prefill; it has no pageable KV), as in the reference.  Every serving path
 returns ``(logits, cache)`` and updates the cache in place;
 ``cfg.kv_quant`` makes every KV cache int8 with per-row scales.
+``batch_struct`` / ``materialize_batch`` give one step's data inputs,
+the modality stubs included, as shapes or as random tensors.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -46,13 +50,13 @@ class Model:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.arch_type == "dense":
+    if cfg.arch_type in ("dense", "moe", "vlm"):
         return _build_transformer(cfg)
     if cfg.arch_type == "ssm":
         return _build_ssm(cfg)
     raise NotImplementedError(
-        f"the port serves dense decoders and mamba2 only, got arch_type "
-        f"{cfg.arch_type!r} ({cfg.name})")
+        f"the port serves dense, MoE and VLM decoders and mamba2, got "
+        f"arch_type {cfg.arch_type!r} ({cfg.name})")
 
 
 def _build_transformer(cfg: ModelConfig) -> Model:
@@ -66,7 +70,8 @@ def _build_transformer(cfg: ModelConfig) -> Model:
             transformer.init_cache(cfg, batch, max_seq, dtype,
                                    resolve_device(device)),
         prefill=lambda params, batch, cache:
-            transformer.prefill(params, cfg, batch["tokens"], cache),
+            transformer.prefill(params, cfg, batch["tokens"], cache,
+                                patch_embeds=batch.get("patch_embeds")),
         prefill_chunk=lambda params, cache, tokens, starts, valid:
             transformer.prefill_chunk(params, cfg, tokens, starts, valid,
                                       cache),
@@ -99,3 +104,59 @@ def _build_ssm(cfg: ModelConfig) -> Model:
         prefill=lambda params, batch, cache:
             ssm_lm.prefill(params, cfg, batch["tokens"], cache),
     )
+
+
+# ---------------------------------------------------------------------------
+# modality stubs for one step's inputs
+# ---------------------------------------------------------------------------
+
+def batch_struct(cfg: ModelConfig, batch: int, seq: int, kind: str,
+                 dtype: torch.dtype = torch.float32
+                 ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """name -> (shape, dtype) of one step's data inputs (``kind``:
+    ``"train"``, ``"prefill"`` or ``"decode"``), the reference's
+    ``batch_struct`` for the families the port serves (the
+    encoder-decoder's frames wait for that family); a VLM's prefill spends
+    ``num_patch_tokens`` of ``seq`` on the patch prefix."""
+    def patches():
+        return ((batch, cfg.vision.num_patch_tokens,
+                 cfg.vision.patch_embed_dim or cfg.d_model), dtype)
+
+    if kind in ("train", "prefill"):
+        if kind == "train":
+            out = {"tokens": ((batch, seq + 1), torch.int32)}
+        else:
+            n_text = seq
+            if cfg.vision is not None:
+                n_text = max(seq - cfg.vision.num_patch_tokens, 1)
+            out = {"tokens": ((batch, n_text), torch.int32)}
+        if cfg.vision is not None:
+            out["patch_embeds"] = patches()
+        return out
+    if kind == "decode":
+        return {"tokens": ((batch,), torch.int32),
+                "lengths": ((batch,), torch.int32)}
+    raise ValueError(kind)
+
+
+def materialize_batch(cfg: ModelConfig, batch: int, seq: int, kind: str,
+                      gen: torch.Generator, dtype: torch.dtype = torch.float32,
+                      device: Any = "cuda") -> Dict[str, torch.Tensor]:
+    """Random tensors of ``batch_struct``'s shapes on ``device``, drawn
+    from ``gen`` (a generator of that device): token ids uniform over the
+    vocab, ``lengths`` at ``seq - 1``, embeddings normal at 0.02."""
+    dev = resolve_device(device)
+    out = {}
+    for name, (shape, dt) in batch_struct(cfg, batch, seq, kind,
+                                          dtype).items():
+        if not dt.is_floating_point:
+            if name == "lengths":
+                out[name] = torch.full(shape, seq - 1, dtype=dt, device=dev)
+            else:
+                out[name] = torch.randint(0, cfg.vocab_size, shape,
+                                          generator=gen, dtype=dt, device=dev)
+        else:
+            out[name] = (torch.randn(shape, generator=gen,
+                                     dtype=torch.float32, device=dev)
+                         * 0.02).to(dt)
+    return out

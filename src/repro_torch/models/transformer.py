@@ -1,12 +1,17 @@
-"""Dense decoder-only transformer LM (PyTorch twin of
-``src/repro/models/transformer.py`` for ``arch_type == "dense"``): the
-training loss (``loss_fn``), the single-shot prefill into the dense
-per-slot cache (``prefill``), and chunked prefill and decode over the
-paged KV pool or the dense per-slot cache.
+"""Decoder-only transformer LM, dense, MoE or VLM backbone (PyTorch twin
+of ``src/repro/models/transformer.py``): the training loss (``loss_fn``),
+the single-shot prefill into the dense per-slot cache (``prefill``, with a
+VLM's projected patch embeddings as a prompt prefix), and chunked prefill
+and decode over the paged KV pool or the dense per-slot cache.  An MoE
+block (``cfg.moe``) runs ``models/moe.py::apply_moe`` in place of the
+SwiGLU MLP; its aux loss is summed in training and dropped in serving, as
+in the reference.
 
-Params are nested dicts: ``{"embed", "final_norm", ["lm_head"], "blocks":
-[per-layer dict, ...]}`` — one dict per layer instead of the reference's
-leaves stacked on a leading ``layers`` axis for ``lax.scan`` (the forward
+Params are nested dicts: ``{"embed", "final_norm", ["lm_head"],
+["vision_proj"], "blocks": [per-layer dict, ...]}`` (a block holds
+``"moe"`` in place of ``"mlp"`` for an MoE model) — one dict per layer
+instead of the reference's leaves stacked on a leading ``layers`` axis
+for ``lax.scan`` (the forward
 is a Python loop over layers; ``models/convert.py`` unstacks reference
 params).  The KV cache stacks each layer's leaves (``models/attention.py``)
 on a leading ``layers`` axis — ``{"k", "v"}`` plus ``{"k_scale",
@@ -14,23 +19,27 @@ on a leading ``layers`` axis — ``{"k", "v"}`` plus ``{"k_scale",
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, moe as moe_lib
 
 
 def init_block(gen: torch.Generator, cfg, dtype: torch.dtype,
                device: torch.device):
-    return {
+    p = {
         "attn_norm": torch.ones(cfg.d_model, dtype=dtype, device=device),
         "attn": attention.init_attention(gen, cfg, dtype, device),
         "mlp_norm": torch.ones(cfg.d_model, dtype=dtype, device=device),
-        "mlp": layers.init_swiglu_mlp(gen, cfg.d_model, cfg.d_ff, dtype,
-                                      device),
     }
+    if cfg.moe is not None:
+        p["moe"] = moe_lib.init_moe(gen, cfg, dtype, device)
+    else:
+        p["mlp"] = layers.init_swiglu_mlp(gen, cfg.d_model, cfg.d_ff, dtype,
+                                          device)
+    return p
 
 
 def init_lm(gen: torch.Generator, cfg, dtype: torch.dtype,
@@ -47,6 +56,10 @@ def init_lm(gen: torch.Generator, cfg, dtype: torch.dtype,
     if not cfg.tie_embeddings:
         p["lm_head"] = layers.dense_init(gen, cfg.d_model, cfg.padded_vocab,
                                          dtype, device)
+    if cfg.vision is not None:
+        in_dim = cfg.vision.patch_embed_dim or cfg.d_model
+        p["vision_proj"] = layers.dense_init(gen, in_dim, cfg.d_model, dtype,
+                                             device)
     return p
 
 
@@ -71,12 +84,23 @@ def init_cache(cfg, batch: int, max_seq: int, dtype: torch.dtype,
     return attention.kv_buffers(cfg, shape, dtype, device)
 
 
+def _ffn(cfg, bp, h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The block's feed-forward: the MoE layer (out, aux) or the SwiGLU
+    MLP (out, None)."""
+    if cfg.moe is not None:
+        return moe_lib.apply_moe(bp["moe"], cfg, h)
+    return layers.swiglu_mlp(bp["mlp"], h), None
+
+
 def _block_train(cfg, x: torch.Tensor, positions: torch.Tensor,
-                 bp) -> torch.Tensor:
+                 bp) -> Tuple[torch.Tensor, torch.Tensor]:
     h = layers.rms_norm(x, bp["attn_norm"], cfg.rms_norm_eps)
     x = x + attention.attend_train(bp["attn"], cfg, h, positions)
     h = layers.rms_norm(x, bp["mlp_norm"], cfg.rms_norm_eps)
-    return x + layers.swiglu_mlp(bp["mlp"], h)
+    out, aux = _ffn(cfg, bp, h)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + out, aux
 
 
 def forward_train(params, cfg, x_embeds: torch.Tensor,
@@ -88,41 +112,58 @@ def forward_train(params, cfg, x_embeds: torch.Tensor,
     reference's ``lax.scan``; with ``remat`` each block runs under
     ``torch.utils.checkpoint``, which keeps only its input and reruns its
     forward in the backward pass (the reference's ``jax.checkpoint``).  The
-    aux loss is MoE's, so always 0 here."""
-    if cfg.moe is not None or cfg.vision is not None:
-        raise NotImplementedError(
-            f"the port trains dense decoders only (no MoE or VLM yet), got "
-            f"{cfg.name}")
+    aux loss is the MoE layers' sum (0 for a dense model)."""
     if cfg.shard_activations_seq:
         raise NotImplementedError(
             "shard_activations_seq: the port has no sharding yet")
     x = x_embeds
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for bp in params["blocks"]:
         if remat:
-            x = checkpoint(_block_train, cfg, x, positions, bp,
-                           use_reentrant=False)
+            x, a = checkpoint(_block_train, cfg, x, positions, bp,
+                              use_reentrant=False)
         else:
-            x = _block_train(cfg, x, positions, bp)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            x, a = _block_train(cfg, x, positions, bp)
+        aux = aux + a
     return layers.rms_norm(x, params["final_norm"], cfg.rms_norm_eps), aux
+
+
+def embed_vlm(params, cfg, tokens: torch.Tensor,
+              patch_embeds: torch.Tensor) -> torch.Tensor:
+    """VLM input: precomputed patch embeddings (the vision frontend is a
+    stub) projected and prepended to the token embeddings."""
+    tok = layers.embed_tokens(params, tokens)
+    patches = patch_embeds @ params["vision_proj"]
+    return torch.cat([patches.to(tok.dtype), tok], dim=1)
 
 
 def loss_fn(params, cfg, batch: Dict[str, torch.Tensor], *,
             remat: bool = True
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token cross-entropy. batch: {"tokens": (B, S+1) integer}.
-    Returns (loss, {"ce", "aux"}), 0-dim f32 tensors."""
+    """Next-token cross-entropy plus the MoE aux loss, ``ce +
+    aux_loss_weight * aux / num_layers``.  batch: {"tokens": (B, S+1)
+    integer[, "patch_embeds": (B, P, d_in)]}; a VLM's patch prefix is
+    dropped before the loss.  Returns (loss, {"ce", "aux"}), 0-dim f32
+    tensors."""
     tokens = batch["tokens"].long()
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    x = layers.embed_tokens(params, inputs)
+    if cfg.vision is not None:
+        x = embed_vlm(params, cfg, inputs, batch["patch_embeds"])
+        n_prefix = x.shape[1] - inputs.shape[1]
+    else:
+        x = layers.embed_tokens(params, inputs)
+        n_prefix = 0
     L = x.shape[1]
     positions = torch.arange(L, device=x.device)[None, :]
     hidden, aux = forward_train(params, cfg, x, positions, remat=remat)
+    hidden = hidden[:, n_prefix:]
     logits = layers.unembed(params, cfg, hidden).float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None])[..., 0]
     ce = torch.mean(logz - gold)
-    return ce, {"ce": ce, "aux": aux}
+    aux_w = cfg.moe.aux_loss_weight if cfg.moe is not None else 0.0
+    total = ce + aux_w * aux / max(cfg.num_layers, 1)
+    return total, {"ce": ce, "aux": aux}
 
 
 def _layer_caches(cache: Dict[str, torch.Tensor]
@@ -140,18 +181,25 @@ def _forward(params, cfg, x: torch.Tensor, cache: Dict[str, torch.Tensor],
         h = layers.rms_norm(x, bp["attn_norm"], cfg.rms_norm_eps)
         x = x + attend(bp["attn"], h, layer)
         h = layers.rms_norm(x, bp["mlp_norm"], cfg.rms_norm_eps)
-        x = x + layers.swiglu_mlp(bp["mlp"], h)
+        x = x + _ffn(cfg, bp, h)[0]
     return layers.rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
 
 
 def prefill(params, cfg, tokens: torch.Tensor,
-            cache: Dict[str, torch.Tensor]
+            cache: Dict[str, torch.Tensor],
+            patch_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Single-shot prefill of whole prompts from position 0.  tokens: (B,
-    L); ``cache``: a dense per-slot cache of batch B (``init_cache``).
-    Returns (the last position's logits (B, V), the cache filled in
-    place)."""
-    x = layers.embed_tokens(params, tokens)
+    L); ``cache``: a dense per-slot cache of batch B (``init_cache``); a
+    VLM takes ``patch_embeds`` (B, P, d_in), whose projections fill cache
+    positions 0..P-1 ahead of the text.  Returns (the last position's
+    logits (B, V), the cache filled in place)."""
+    if cfg.vision is not None:
+        if patch_embeds is None:
+            raise ValueError(f"{cfg.name} needs patch_embeds to prefill")
+        x = embed_vlm(params, cfg, tokens, patch_embeds)
+    else:
+        x = layers.embed_tokens(params, tokens)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     x = _forward(params, cfg, x, cache,
                  lambda ap, h, layer: attention.attend_prefill(

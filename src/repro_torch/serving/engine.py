@@ -63,9 +63,17 @@ copies into the slot; the page pool refuses it with the reference's
 ``ValueError``.  ``fork_slot`` clones a decoding request onto shared pages,
 the tail's copy-on-write landing at the next dispatch.
 
-Not ported: modality extras (the single-shot prefill of a VLM or enc-dec
-model) raise ``NotImplementedError``.  The reference's ``"xla"`` /
-``"paged-xla"`` backends do too, and stay refused: they are its plain-jnp
+Modality extras (a VLM's ``patch_embeds``, from ``admit(req, extras=...)``
+or ``req.extras``) ride the single-shot prefill on ``"cuda"``, moved to the
+engine's device and dtype; the page pool refuses them as the reference
+does (``can_admit`` false, ``admit`` a ``ValueError``).  As in the
+reference, the slot's length after that prefill is the text's,
+``prompt_len``, though the cache holds the patch prefix ahead of it, so
+decode resumes at position ``prompt_len`` (inside the prefix when the
+prompt is the shorter); the port keeps this so both engines give the same
+tokens (ROADMAP.md, Queue 3).  The
+reference's ``"xla"`` / ``"paged-xla"`` backends raise
+``NotImplementedError`` and stay refused: they are its plain-jnp
 parity path, which on a card would run the plain versions on the main
 path, where the port runs only its CUDA kernels; the port's plain versions
 are its CPU run (``device="cpu"``), which every backend already has.
@@ -353,15 +361,22 @@ class ContinuousBatchingEngine:
         for name, leaf in self.cache.items():
             leaf[:, b] = slot_cache[name][:, 0]
 
-    def _prefill_one(self, prompt: np.ndarray) -> Tuple[int, Dict[str, Any]]:
+    def _prefill_one(self, prompt: np.ndarray, extras: Dict[str, Any]
+                     ) -> Tuple[int, Dict[str, Any]]:
         """Prefill a single request (batch 1, exact length: SSM-state safe)
-        from a fresh cache; returns (first token, that cache)."""
+        from a fresh cache, with its modality extras (each given a batch
+        axis, on the engine's device and dtype); returns (first token,
+        that cache).  The reference caches one jitted function per
+        ``(L,) + sorted(extras)``; the port runs eagerly and has nothing to
+        compile."""
         cache1 = self.model.init_cache(1, self.cfg.max_seq_len,
                                        self.cfg.dtype, self.device)
-        tokens = torch.tensor(prompt, dtype=torch.int32,
-                              device=self.device)[None]
-        logits, cache1 = self.model.prefill(self.params, {"tokens": tokens},
-                                            cache1)
+        batch = {"tokens": torch.tensor(prompt, dtype=torch.int32,
+                                        device=self.device)[None]}
+        batch.update({k: torch.as_tensor(v).to(self.device,
+                                                self.cfg.dtype)[None]
+                      for k, v in extras.items()})
+        logits, cache1 = self.model.prefill(self.params, batch, cache1)
         return int(torch.argmax(logits[0], dim=-1)), cache1
 
     def _extract_pages(self, block_ids: List[int]) -> Dict[str, torch.Tensor]:
@@ -450,15 +465,17 @@ class ContinuousBatchingEngine:
         if snap and snap.get("pinned"):
             snap["pin_owner"].release_pins(snap["pinned"], snap["pin_epoch"])
 
-    def _use_chunked(self) -> bool:
+    def _use_chunked(self, extras: Optional[Dict[str, Any]] = None) -> bool:
         return (self.cfg.prefill_chunk_tokens > 0
-                and self.model.prefill_chunk is not None)
+                and self.model.prefill_chunk is not None
+                and not extras)
 
     def can_admit(self, req: Request) -> bool:
         if self._free_slot() is None:
             return False
-        if req.extras:
-            # modality extras ride a single-shot prefill that is not ported
+        if self.paged and req.extras:
+            # modality extras ride the single-shot prefill, which has no
+            # paged variant: refuse (the pull loop hands the request back)
             return False
         snap = req.snapshot
         shared_blocks = 0
@@ -493,14 +510,13 @@ class ContinuousBatchingEngine:
         slot = self._free_slot()
         if slot is None or not self.can_admit(req):
             return False
-        if extras or req.extras:
-            if self.paged:
-                raise ValueError(
-                    "paged attention backends have no legacy single-shot "
-                    "prefill path (modality extras need a dense backend)")
-            raise NotImplementedError(
-                "modality extras (the single-shot prefill of a VLM or "
-                "enc-dec model) are not ported")
+        ex = extras or req.extras or {}
+        if ex and self.paged:
+            # only reachable by an explicit admit(req, extras={...}):
+            # can_admit refuses pull-source requests with req.extras
+            raise ValueError(
+                "paged attention backends have no legacy single-shot "
+                "prefill path (modality extras need a dense backend)")
         t0 = self._wall()
         my_layout = "paged" if self.paged else "dense"
         if req.snapshot is not None \
@@ -526,7 +542,7 @@ class ContinuousBatchingEngine:
                     "first: cross-engine migration)")
         if req.snapshot is not None \
                 and req.snapshot.get("prefill_pos", req.prompt_len) \
-                < req.prompt_len and not self._use_chunked():
+                < req.prompt_len and not self._use_chunked(ex):
             # a mid-prefill snapshot on an engine that cannot chunk: drop
             # it and recompute the whole prefill
             self._discard_snapshot(req)
@@ -559,7 +575,7 @@ class ContinuousBatchingEngine:
             req.snapshot = None  # pins were transferred, not released
             self.stats.resumes += 1
             self.slots[slot] = req
-        elif self._use_chunked():
+        elif self._use_chunked(ex):
             shared: List[int] = []
             if self.prefix_sharing:
                 self.stats.prefix_lookups += 1
@@ -580,10 +596,10 @@ class ContinuousBatchingEngine:
             self.lengths[slot] = start
             self.slots[slot] = req
         else:
-            # single-shot path (the SSM's state carry; a dense transformer
-            # at prefill_chunk_tokens <= 0).  Compute first: a raising
-            # prefill must leave the engine clean.
-            tok, cache1 = self._prefill_one(np.asarray(req.prompt_tokens))  # qlint: disable=host-sync-in-hot-path -- host prompt list -> array for the one-shot prefill path
+            # single-shot path (the SSM's state carry; a transformer at
+            # prefill_chunk_tokens <= 0 or with modality extras).  Compute
+            # first: a raising prefill must leave the engine clean.
+            tok, cache1 = self._prefill_one(np.asarray(req.prompt_tokens), ex)  # qlint: disable=host-sync-in-hot-path -- host prompt list -> array for the one-shot prefill path
             self.slots[slot] = req
             self._insert_cache(cache1, slot)
             self.lengths[slot] = req.prompt_len

@@ -110,16 +110,24 @@ def test_soak_without_supervision_strands_requests(registry):
 
 def test_soak_builds_its_own_weights_and_refuses_hetero():
     """Without a registry the soak draws the reduced arch's weights from a
-    generator seeded with ``--seed`` on ``--device``; ``--hetero`` waits
-    for the sharding rules."""
+    generator seeded with ``--seed`` on ``--device``; ``--hetero`` (once
+    refused, hence the name) gives instance i the static profile of tier
+    ``i % 3``, equal field for field to the reference's ``_hw``."""
     reg = chaos.build_registry(_args())
     model, params = reg[ARCH]
     assert model.cfg.num_layers == 1 and model.cfg.d_model == 64
     assert params["embed"].dtype == torch.float32
     again = chaos.build_registry(_args())[ARCH][1]
     assert torch.equal(params["embed"], again["embed"])
-    with pytest.raises(NotImplementedError, match="sharding rules"):
-        chaos.build_cluster(_args(hetero=True), FaultPlan([], seed=0), reg)
+    args = _args(hetero=True, instances=3)
+    _, _, _, controller, _, _ = chaos.build_cluster(
+        args, FaultPlan([], seed=0), reg)
+    profiles = [vars(inst.hw_by_model[ARCH])
+                for inst in controller.instances]
+    assert profiles == [vars(jax_chaos._hw(args.max_new_tokens, tier=i))
+                        for i in range(3)]
+    assert len({p["prefill_time"] for p in profiles}) == 3
+    assert vars(chaos._hw(8)) == vars(jax_chaos._hw(8))
 
 
 # ---------------------------------------------------------------------------
@@ -239,8 +247,8 @@ def test_migration_sweep_moves_orphaned_pinned_snapshot(registry):
 
 def test_threaded_churn_soak_zero_violations_zero_leaks(registry,
                                                         monkeypatch):
-    """Twin of the JAX test of that name, with homogeneous profiles (the
-    port's ``--hetero`` waits for the sharding rules): three engines on
+    """Twin of the JAX test of that name, with its arguments (``--hetero``
+    tiers included): three engines on
     their own threads under submit/cancel/kill/migrate churn, the qlint
     invariants checked on sampled rounds and ticks; every request ends
     terminal and no pool, the dead and drained ones included, leaks."""
@@ -249,7 +257,7 @@ def test_threaded_churn_soak_zero_violations_zero_leaks(registry,
     args = argparse.Namespace(
         arch=ARCH, instances=3, slots=4, seed=0, max_new_tokens=8,
         scenario="none", hang_grace=None, retry_budget=2, threaded=True,
-        routing="slice")
+        hetero=True, routing="slice")
     clock, engines, agents, controller, make_engine, _ = \
         chaos.build_cluster(args, FaultPlan([], seed=0), registry)
 

@@ -114,7 +114,23 @@ PREFILL_CASES = [
     (64, 1, 64, 16, 17, [16, 40], [17, 3], 1.0),
     (8, 2, 17, 8, 40, [70, 3], [40, 25], 1.0),     # rows not 16-byte wide
     (32, 8, 64, 16, 128, [127, 0, 64], [128, 128, 90], 8.0),
+    # chunks past 128 rows, where the reference's 128-row q tiles end
+    # inside the kernel's tiles of 64 // group rows (groups 3, 6 and 7)
+    (12, 2, 128, 16, 256, [0, 40, 300, 7], [1, 100, 128, 0], 1.0),
+    (14, 2, 128, 16, 256, [0, 40, 300, 7], [120, 5, 129, 0], 1.0),
+    (12, 2, 128, 16, 512, [0, 40, 300, 7], [130, 1, 300, 383], 1.0),
+    (14, 2, 128, 16, 512, [0, 40, 300, 7], [130, 1, 300, 0], 1.0),
+    (6, 2, 64, 16, 384, [0, 17], [100, 200], 1.0),
 ]
+
+
+def _check_prefill(out, want, C, vd, dtype):
+    """Every row of a prefill output, the padding rows past valid
+    included, against the plain version; exact zeros past ``live_rows``
+    (all of an inactive row: it reads nothing)."""
+    torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+    for b, n in enumerate(ppa.live_rows(C, vd).tolist()):
+        assert torch.count_nonzero(out[b, :, n:]) == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -144,11 +160,7 @@ def test_paged_prefill_kernel_matches_plain(dev, dtype, H, KVH, D, bs, C,
     torch.cuda.synchronize()
     assert ppa.launches == before + 1
     want = ppa.paged_prefill_attention_plain(q, kp, vp, ck, cv, bt, st, vd)
-    for b, n in enumerate(valid):
-        torch.testing.assert_close(out[b, :, :n].float(),
-                                   want[b, :, :n].float(), **TOL[dtype])
-        if n == 0:                       # an inactive row reads nothing
-            assert torch.count_nonzero(out[b]) == 0
+    _check_prefill(out, want, C, vd, dtype)
 
 
 def _int8_rows(rng, shape, dtype, dev):
@@ -195,6 +207,9 @@ PREFILL_QUANT_CASES = [
     (64, 8, 128, 16, 17, [16, 300, 0], [17, 3, 9]),
     (64, 1, 64, 16, 17, [16, 40], [17, 3]),
     (32, 8, 64, 16, 128, [2048, 2048, 2048, 2048], [128, 128, 100, 128]),
+    # past 128 rows: the reference's q tiles end inside the kernel's
+    (12, 2, 128, 16, 256, [0, 40, 300, 7], [1, 100, 128, 0]),
+    (14, 2, 128, 16, 512, [0, 40, 300, 7], [130, 1, 300, 383]),
 ]
 
 
@@ -224,11 +239,7 @@ def test_paged_prefill_quant_kernel_matches_plain(dev, dtype, H, KVH, D, bs,
     assert ppa.quant_launches == before + 1
     want = ppa.paged_prefill_attention_quant_plain(q, kq, vq, ks, vs, ck, cv,
                                                    bt, st, vd)
-    for b, n in enumerate(valid):
-        torch.testing.assert_close(out[b, :, :n].float(),
-                                   want[b, :, :n].float(), **TOL[dtype])
-        if n == 0:                       # an inactive row reads nothing
-            assert torch.count_nonzero(out[b]) == 0
+    _check_prefill(out, want, C, vd, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -304,7 +315,7 @@ def _split_case(kind, rng, dtype, dev, H, KVH, D, lengths, quant=False):
 @pytest.mark.parametrize("kind", ["paged", "dense"])
 @pytest.mark.parametrize("quant", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("G", [1, 4, 8, 64])
+@pytest.mark.parametrize("G", [1, 4, 6, 7, 8, 64])
 @pytest.mark.parametrize("D", [64, 80, 128])
 def test_split_decode_kernels_match_plain(dev, kind, quant, dtype, G, D):
     rng = np.random.default_rng(11)

@@ -19,6 +19,7 @@ import torch
 
 from repro.configs import ARCHITECTURES
 from repro.core.request import Request as JaxRequest
+from repro.launch import serve as jax_serve
 from repro.models import build_model as jax_build_model
 from repro.serving import ContinuousBatchingEngine as JaxEngine
 from repro.serving import EngineConfig as JaxEngineConfig
@@ -155,10 +156,11 @@ def test_threaded_driver_serves_every_request_like_the_jax_engine():
     assert runs[True] == [t.output_tokens for t in twins]
 
 
-def test_serve_cli_threaded_and_compare_drivers(capsys):
+def test_serve_cli_threaded_and_compare_drivers(capsys, monkeypatch):
     """``--threaded`` and ``--compare-drivers`` on the CPU serve every
     request (each engine on its own thread, the controller ticking on its
-    own); ``--hetero`` still refuses."""
+    own); ``--hetero`` over three instances calibrates once per tier, on
+    the reference's tier configs, and serves every request."""
     flags = ["--device", "cpu", "--instances", "2", "--requests", "8",
              "--rate", "20", "--max-new-tokens", "4", "--slots", "4",
              "--debug-invariants"]
@@ -172,5 +174,20 @@ def test_serve_cli_threaded_and_compare_drivers(capsys):
     for st in out.values():
         assert st["requests"] == st["served"] == 8
     assert "tokens/s           threaded" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="sharding rules"):
-        serve.main(flags + ["--hetero"])
+    calibrated = []
+    real = serve.calibrate_registry
+
+    def counting(registry, ecfg):
+        calibrated.append((ecfg.max_slots, ecfg.decode_burst))
+        return real(registry, ecfg)
+
+    monkeypatch.setattr(serve, "calibrate_registry", counting)
+    flags[flags.index("--instances") + 1] = "3"
+    stats = serve.main(flags + ["--hetero", "--threaded"])
+    assert calibrated == [(8, 4), (4, 2), (2, 1)]
+    tiers = [jax_serve.hetero_engine_cfg(JaxEngineConfig(max_slots=4), i)
+             for i in range(3)]
+    assert calibrated == [(c.max_slots, c.decode_burst) for c in tiers]
+    assert stats["requests"] == stats["served"] == 8
+    assert stats["failed"] == stats["dropped_unserved"] == 0
+    assert len(stats["engine_rounds"]) == 3

@@ -195,7 +195,7 @@ def test_failed_prefill_leaves_engine_clean(pairs):
     block behind, and the engine still serves."""
     eng = _port(pairs(GRANITE), prefill_chunk_tokens=0)
 
-    def boom(prompt):
+    def boom(prompt, extras):
         raise RuntimeError("device OOM")
 
     eng._prefill_one = boom

@@ -11,8 +11,8 @@ weights (carried across by ``models/convert.py``):
   * the layout rules: the page pool refuses the SSM (construction and
     swap, before anything is flushed) and the single-shot prefill; a
     dense transformer without chunked prefill serves on the dense layout
-    (also after a swap from mamba2); modality extras, which are not
-    ported, still raise ``NotImplementedError``.
+    (also after a swap from mamba2); modality extras ride the SSM's
+    single-shot prefill, which ignores them, as the reference's does.
 
 Tolerance: exact on tokens.
 """
@@ -220,9 +220,8 @@ def test_layout_rules(pairs):
         device="cpu", attention_backend="cuda", **no_chunks), model_name="m2")
     s = Request(prompt_tokens=[1, 2, 3], model="m2", slo=1e9,
                 max_new_tokens=3)
-    with pytest.raises(NotImplementedError, match="modality extras"):
-        eng.admit(s, extras={"patch_embeds": np.zeros((1, 4))})
-    assert eng.num_active() == 0 and eng.admit(s)
+    assert eng.num_active() == 0
+    assert eng.admit(s, extras={"patch_embeds": np.zeros((1, 4))})
     _drain(eng, [s])
     # ... and so does a dense transformer's on the dense layout (its tokens
     # are held against the JAX engine in test_torch_single_shot_prefill.py)
