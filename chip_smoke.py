@@ -166,7 +166,27 @@ Phases, in order; any failure exits non-zero before the result lines:
      embeddings through ``admit(..., extras=...)`` on the dense backend,
      and the page pool's refusal of them; launches exactly one a layer
      per decode step and chunk round, no other kernel;
-  7e. hetero phase: ``serve.run_threaded`` with ``--hetero`` over 3
+  7e. hybrid/enc-dec phase (``hybrid_encdec_phase``): zamba2-1.2b (38
+     mamba2 layers, the shared attention block at 6 sites, 32 heads on
+     32) and whisper-medium (24 encoder and 24 decoder layers, 16 heads
+     on 16, 1500 frames) whole, bf16, one after the other: the dense
+     decode kernel and its int8 twin at the runs' shapes (group 1, D 64,
+     8 slots over 545 and 65 columns) and the SSD scan at zamba2's
+     single-shot prefills (1, L, 64 heads of 64, N 64, chunk 64) against
+     their plain versions and timed; 8 requests on the dense backend
+     under the controller and agent (two by ``admit(..., extras=...)``,
+     six pulled with ``req.extras``; profiles by ``calibrate_from_engine``,
+     whisper's through a prefill that adds zero frames to the calibration's
+     prompts): zamba2's prompts 16-512 tokens, in float twice (bitwise
+     equal) and with int8 KV; whisper's with random (1500, 1024) frames;
+     every request terminal and served, launches exactly one dense decode
+     kernel a site (6) or a decoder layer (24) per decode step and one SSD
+     scan a layer (38) per admission, no other kernel; two requests
+     evicted and resumed in each other's slot give the uninterrupted
+     run's tokens; the page pool refuses both (construction, swap, a
+     request with frames); a decode step's device and eager time beside
+     its read bound, and one admission's;
+  7f. hetero phase: ``serve.run_threaded`` with ``--hetero`` over 3
      instances of full-width granite-3-2b: one calibration per tier
      ((16, 4), (8, 2), (4, 1) slots and burst), every request terminal, no
      page leaked, only the two float paged kernels launched;
@@ -178,13 +198,15 @@ Phases, in order; any failure exits non-zero before the result lines:
      h2o-danube on the dense backend with prompts past its 64-token
      rolling window, qwen1.5-32b (QKV bias, group 1) on the page pool and
      deepseek-67b (group 8) on the dense backend at head_dim 128,
-     qwen3-moe-30b-a3b (group 8, 4 experts top 2) on the page pool, and
+     qwen3-moe-30b-a3b (group 8, 4 experts top 2) on the page pool,
      llava-next-34b (group 7) on the dense backend with patch embeddings
-     on every request; granite on int8 pages must keep its
+     on every request, and zamba2 (four layers, two sites) and whisper
+     (frame embeddings on every request) on the dense backend through the
+     single-shot prefill; granite on int8 pages must keep its
      logits within 1e-3 of the CPU's and may part from its tokens only at
-     a near tie (``near_tie_parting``); so may mamba2 (dense backend,
-     single-shot prefill through the SSD kernel on the card), whose
-     float logits are checked the same way;
+     a near tie (``near_tie_parting``); so may mamba2 and zamba2 (dense
+     backend, single-shot prefill through the SSD kernel on the card),
+     whose float logits are checked the same way;
   9. training phase, through ``repro_torch.launch.train.train`` with
      ``use_pallas_attention`` set, float32, launch counts set to 0 just
      before and read just after: 3 steps of full-width granite-3-2b
@@ -2151,15 +2173,16 @@ VLM_MAX_SEQ = 3008
 
 
 def _init_cut(arch: str, seed: int, tag: str):
-    """``arch`` at full width with its depth cut to MOE_VLM_LAYERS (or the
-    dense-family depth), bf16 weights from a seeded generator; logs the
-    cut, the parameter count and ``memory_allocated``."""
+    """``arch`` at full width with its depth cut to MOE_VLM_LAYERS (whole
+    for an arch not listed there), bf16 weights from a seeded generator;
+    logs the cut, the parameter count and ``memory_allocated``."""
     from repro_torch.configs import get_arch
     from repro_torch.models import build_model
 
     t0 = time.monotonic()
     full = get_arch(arch)
-    cfg = dataclasses.replace(full, num_layers=MOE_VLM_LAYERS[arch])
+    cfg = dataclasses.replace(full, num_layers=MOE_VLM_LAYERS.get(
+        arch, full.num_layers))
     model = build_model(cfg)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(20 + seed)
@@ -2176,6 +2199,12 @@ def _init_cut(arch: str, seed: int, tag: str):
            if moe else "")
         + (f", {cfg.vision.num_patch_tokens} patch tokens" if cfg.vision
            else "")
+        + (f", {cfg.ssm.num_heads(cfg.d_model)} SSD heads of "
+           f"{cfg.ssm.head_dim}, d_state {cfg.ssm.d_state}, chunk "
+           f"{cfg.ssm.chunk_size}, attention every {cfg.hybrid_attn_every} "
+           f"layers" if cfg.ssm else "")
+        + (f", encoder {cfg.encoder.num_layers} layers over "
+           f"{cfg.encoder.num_frames} frames" if cfg.encoder else "")
         + f", {sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B params "
         f"bf16 ({cfg.param_count() / 1e9:.3f} B by the config, "
         f"{full.param_count() / 1e9:.3f} B at full depth), "
@@ -2446,6 +2475,416 @@ def moe_vlm_phase() -> None:
         log(f"  [{tag}] {arch} in {time.monotonic() - t0:.1f} s")
 
 
+HYBRID_ENCDEC = ("zamba2-1.2b", "whisper-medium")
+# both whole, at full width and depth.  zamba2's dense caches hold its
+# longest prompt (512) and 16 new tokens, plus room; whisper's decoder
+# caches hold prompts of up to 32 tokens and 16 new ones, far below its
+# 1500 frames, whose cross K/V each slot keeps whole
+ZAMBA_MAX_SEQ, WHISPER_MAX_SEQ = 544, 64
+ZAMBA_PROMPTS = (16, 40, 77, 128, 200, 333, 450, 512)
+
+
+def _site_launches(cfg) -> int:
+    """Dense decode launches per decode step: one per attention site of
+    the hybrid, one per decoder layer of the encoder-decoder."""
+    from repro_torch.models.hybrid import attn_sites
+    return len(attn_sites(cfg)) if cfg.arch_type == "hybrid" \
+        else cfg.num_layers
+
+
+def _param_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def hybrid_encdec_kernels(tag, cfg, lengths, S1, ssd_lengths=()) -> None:
+    """The dense decode kernel and its int8 twin at the run's shape (8
+    slots, group 1, head_dim 64, a cache of ``S1`` columns, the run's
+    kv lengths) and, for the hybrid, the SSD scan at its single-shot
+    prefill's shape (1, L, 64 heads of 64, N 64, chunk 64, zero state in,
+    the final state out) for each padded prompt length in
+    ``ssd_lengths``: each against its plain version, bf16, and timed
+    beside its bound and (float decode) SDPA."""
+    from repro_torch.kernels import ssd_scan as ss
+
+    H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    dtype, esize = torch.bfloat16, 2
+    rng = np.random.default_rng(9)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    failures = []
+    for q8 in (False, True):
+        name = "decode_attention" + ("_quant" if q8 else "")
+        args = dense_case(rng, gen, dtype, lengths, S1, q8, H=H, KVH=KVH,
+                          D=D)
+        err = check_case(failures, name, dtype,
+                         f"{cfg.name} H{H} KVH{KVH} D{D} S{S1}", args)
+        fn, plain = kernel_fns(name)
+        b, by = bound(attn_bytes(esize, H=H, KVH=KVH, D=D, q_rows=len(lengths),
+                                 kv_rows=sum(lengths), quant=q8,
+                                 ints=len(lengths)),
+                      4.0 * H * D * sum(lengths), dtype)
+        rec = {"max_abs_err": err, "ms": time_ms(lambda: fn(*args)),
+               "plain_ms": time_ms(lambda: plain(*args)),
+               "bound_ms": b, "bound_by": by,
+               "library_ms": time_ms(decode_library(name, args))
+               if not q8 else None}
+        if q8:
+            rec["two_calls_ms"] = time_ms(decode_two_calls(name, args))
+        log(f"  [{tag}] {name} at {cfg.name}'s shape (8 slots, group "
+            f"{H // KVH}, D {D}, S {S1}, lengths {list(lengths)}): "
+            + json.dumps(rec))
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        H_s, P, N, Q = s.num_heads(cfg.d_model), s.head_dim, s.d_state, \
+            s.chunk_size
+        for L in sorted(set(ssd_lengths)):
+            x, dt, A, Bm, Cm, _ = ssd_case(gen, dtype, 1, L, H_s, P,
+                                           s.n_groups, N)
+            args = (x, dt, A, Bm, Cm, Q, None)
+            y, h = ss.ssd_scan(*args, return_state=True)
+            want_y, want_h = ss.ssd_scan_plain(*args, return_state=True)
+            err, ok = compare(y, want_y, dtype, tol=SSD_TOL)
+            h_err, h_ok = compare(h, want_h, torch.float32, tol=SSD_TOL)
+            torch.cuda.synchronize()
+            case = f"{cfg.name} (1,{L},{H_s},{P},{s.n_groups},{N},{Q})"
+            log(f"  {'ssd_scan':30s} {str(dtype):15s} {case:32s} "
+                f"max_abs_err y {err:.3e} final state {h_err:.3e} "
+                f"{'ok' if ok and h_ok else 'FAIL'}")
+            if not (ok and h_ok):
+                failures.append(("ssd_scan", str(dtype), case))
+            if L in (min(ssd_lengths), max(ssd_lengths)):
+                b, by = ssd_bound(dtype, 1, L, H_s, P, s.n_groups, N, Q,
+                                  esize)
+                rec = {"max_abs_err": err,
+                       "ms": time_ms(lambda: ss.ssd_scan(
+                           *args, return_state=True)),
+                       "plain_ms": time_ms(lambda: ss.ssd_scan_plain(
+                           *args, return_state=True)),
+                       "bound_ms": b, "bound_by": by, "library_ms": None}
+                log(f"  [{tag}] ssd_scan at {cfg.name}'s prefill shape L "
+                    f"{L}, bf16, zero state in, final state out: "
+                    + json.dumps(rec))
+    check(not failures, f"{tag} kernels disagree: {failures}")
+
+
+def _calibrate(model, params, ecfg, name):
+    """The controller's profile of ``model``: ``calibrate_from_engine`` on
+    a throwaway engine.  Its prompts carry no extras, so an
+    encoder-decoder is calibrated through a model whose prefill adds zero
+    frames (its encoder then costs what real frames cost)."""
+    from repro_torch.serving import ContinuousBatchingEngine
+    from repro_torch.sim import calibrate_from_engine
+
+    if model.cfg.encoder is not None:
+        F = model.cfg.encoder.num_frames
+
+        def prefill(p, batch, cache, _inner=model.prefill):
+            if "frame_embeds" not in batch:
+                batch = {**batch, "frame_embeds": torch.zeros(
+                    (batch["tokens"].shape[0], F, model.cfg.d_model),
+                    dtype=params["embed"].dtype, device="cuda")}
+            return _inner(p, batch, cache)
+        model = dataclasses.replace(model, prefill=prefill)
+    np.random.seed(0)                # calibrate_from_engine's prompts
+    eng = ContinuousBatchingEngine(model, params, ecfg, model_name=name)
+    return calibrate_from_engine(
+        eng, token_capacity=ecfg.resolved_kv_blocks() * ecfg.block_size)
+
+
+def controlled_run(tag, label, model, params, prompts, extras, max_seq,
+                   hw, direct=2) -> tuple:
+    """One dense (``"cuda"``) engine of 8 slots under the port's
+    controller and agent with the profile ``hw``: the first ``direct``
+    requests enter through ``admit(..., extras=...)``, the rest through
+    the controller, carrying their extras in ``req.extras`` for the
+    agent's pulls; launch counts set to 0 just before and read just
+    after.  Every request must reach a terminal state and be served; the
+    dense decode kernel (int8 twin for ``kv_quant``) launches exactly
+    once a site (a decoder layer) per decode step, the SSD scan once a
+    layer per single-shot admission, no other kernel.  Returns (token
+    streams, launches, engine stats)."""
+    from repro_torch.core.global_scheduler import InstanceInfo
+    from repro_torch.core.lso import QLMAgent
+    from repro_torch.core.qlm import QLMConfig, QLMController
+    from repro_torch.core.request import Request
+    from repro_torch.core.virtual_queue import VirtualQueue
+    from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
+
+    cfg = model.cfg
+    name = cfg.name
+    eng = ContinuousBatchingEngine(model, params, EngineConfig(
+        max_slots=8, max_seq_len=max_seq, attention_backend="cuda",
+        dtype=torch.bfloat16, device="cuda"), model_name=name)
+    vq = VirtualQueue(0)
+    agent = QLMAgent(eng, vq, {name: (model, params)})
+    info = InstanceInfo(0, {name: hw}, name, vq)
+    controller = QLMController([info], QLMConfig(avg_batch_size=8))
+    reqs = [Request(prompt_tokens=list(p), model=name, slo=300.0,
+                    max_new_tokens=16,
+                    extras=None if i < direct or ex is None else ex)
+            for i, (p, ex) in enumerate(zip(prompts, extras))]
+    reset_launches()
+    t0 = time.monotonic()
+    for i, r in enumerate(reqs[:direct]):
+        check(eng.admit(r, extras=extras[i]), f"{label}: not admitted")
+    for r in reqs[direct:]:
+        controller.submit(r, time.monotonic())
+    for _ in range(2000):
+        info.current_model = eng.model_name
+        agent.run_iteration()
+        controller.tick(time.monotonic())
+        if all(_terminal(r) for r in reqs):
+            break
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = read_launches()
+    s = eng.stats
+    want = dict.fromkeys(KERNELS, 0)
+    want["decode_attention_quant" if cfg.kv_quant else "decode_attention"] \
+        = _site_launches(cfg) * s.decode_iterations
+    if cfg.ssm is not None:
+        want["ssd_scan"] = cfg.num_layers * s.prefills
+    log(f"  [{tag}] {label}: {s.prefills} single-shot admissions "
+        f"({direct} by admit(..., extras=...)), {s.decode_iterations} decode "
+        f"steps, {s.evictions} evictions, {s.resumes} resumes in {wall:.2f} "
+        f"s (prefill {s.prefill_time:.3f} s, decode {s.decode_time:.3f} "
+        f"s); launches {({k: n for k, n in launches.items() if n})}")
+    check(all(_terminal(r) for r in reqs), f"{label}: a request is not "
+                                           f"terminal")
+    check(all(r.finished() and len(r.output_tokens) == 16
+              and all(0 <= t < cfg.vocab_size for t in r.output_tokens)
+              for r in reqs), f"{label}: not every request served")
+    check(launches == want, f"{label}: launches {launches} != {want}")
+    check(eng.block_mgr.used_blocks == 0, f"{label}: KV blocks leaked")
+    return [r.output_tokens for r in reqs], launches, s
+
+
+def evict_resume_run(tag, label, model, params, prompts, extras,
+                     max_seq) -> None:
+    """The eight requests on one dense engine, uninterrupted, then again
+    with two requests (slots 2 and 5) evicted after four decode steps and
+    resumed in each other's slot: each must give the uninterrupted run's
+    tokens, so every leaf of a slot (an encoder-decoder's cross K/V of
+    every frame at ``max_seq`` below the frame count) went out and came
+    back whole."""
+    from repro_torch.core.request import Request
+    from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
+
+    runs = []
+    for evict in (False, True):
+        eng = ContinuousBatchingEngine(model, params, EngineConfig(
+            max_slots=8, max_seq_len=max_seq, attention_backend="cuda",
+            dtype=torch.bfloat16, device="cuda"), model_name="m")
+        reqs = [Request(prompt_tokens=list(p), model="m", slo=1e9,
+                        max_new_tokens=16, extras=ex)
+                for p, ex in zip(prompts, extras)]
+        for r in reqs:
+            check(eng.admit(r), f"{label}: not admitted")
+        for _ in range(4):
+            eng.step()
+        if evict:
+            a, b = reqs[2], reqs[5]
+            check(eng.slots.index(a) == 2 and eng.slots.index(b) == 5,
+                  f"{label}: slots")
+            eng.evict_request(a.req_id)
+            eng.evict_request(b.req_id)
+            check(eng.admit(b) and eng.admit(a), f"{label}: not resumed")
+            check(eng.slots.index(b) == 2 and eng.slots.index(a) == 5,
+                  f"{label}: the resumes did not trade slots")
+        for _ in range(100):
+            eng.step()
+            if all(r.finished() for r in reqs):
+                break
+        check(all(r.finished() for r in reqs), f"{label}: not finished")
+        runs.append(([r.output_tokens for r in reqs], eng.stats.resumes))
+    (plain, _), (got, resumes) = runs
+    log(f"  [{tag}] {label}: two requests evicted after 4 decode steps and "
+        f"resumed in each other's slot ({resumes} resumes): tokens equal "
+        f"to the uninterrupted run's: {got == plain}")
+    check(resumes == 2 and got == plain,
+          f"{label}: evicted and resumed tokens {got} != {plain}")
+
+
+def hybrid_encdec_timings(tag, cfg, model, params, max_seq, admission):
+    """Informational: one decode step at 8 slots x 40 tokens, device time
+    from CUDA-graph replays against the eager call, beside what it must
+    read: every weight it uses (the hybrid's shared block once per site,
+    as it does not stay in the 50 MB L2; the encoder-decoder's decoder and
+    embedding) and the state it reads and writes (the hybrid's SSM states
+    and conv histories; the cross K/V of every slot); and one single-shot
+    admission (``admission``: (label, batch)) timed the same way."""
+    B = 8
+    cache = model.init_cache(B, max_seq, torch.bfloat16, "cuda")
+    tokens = torch.arange(B, dtype=torch.int32, device="cuda")
+    lengths = torch.full((B,), 40, dtype=torch.int32, device="cuda")
+    step = lambda: model.decode_step(params, cache, tokens, lengths)
+    device = time_ms(step, iters=3, replays=3)
+    eager = eager_ms(step, iters=5)
+    if cfg.arch_type == "hybrid":
+        nbytes = _param_bytes(params) + (_site_launches(cfg) - 1) \
+            * _param_bytes(params["shared_attn"])
+        nbytes += 2 * (cache["ssm"].numel() * 4
+                       + cache["conv"].numel() * cache["conv"].element_size())
+    else:
+        nbytes = sum(_param_bytes(params[k]) for k in (
+            "embed", "dec_blocks", "final_s", "final_b"))
+        nbytes += 2 * cache["cross_k"].numel() * cache["cross_k"].element_size()
+    kv = cache["kv"] if cfg.arch_type == "hybrid" else cache["self"]
+    nbytes += 2 * kv["k"][:, :, :, :41].numel() * kv["k"].element_size()
+    b = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"  [{tag}] {cfg.name} decode step (8 x 40, dense): device "
+        f"{device:.3f} ms, eager {eager:.3f} ms, host share "
+        f"{1 - device / eager:.3f}; read bound {b:.3f} ms ({nbytes / 1e9:.3f}"
+        f" GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), device / bound "
+        f"{device / b:.2f}")
+    del cache
+    label, batch = admission
+    cache1 = model.init_cache(1, max_seq, torch.bfloat16, "cuda")
+    fill = lambda: model.prefill(params, batch, cache1)
+    device = time_ms(fill, iters=2, replays=3)
+    eager = eager_ms(fill, iters=5)
+    log(f"  [{tag}] {cfg.name} single-shot admission, {label}: device "
+        f"{device:.3f} ms, eager {eager:.3f} ms, host share "
+        f"{1 - device / eager:.3f}")
+    del cache1
+    torch.cuda.empty_cache()
+
+
+def _refusals(tag, model, params, extras) -> None:
+    """The page pool refuses the family at construction and at a swap
+    (before anything is flushed), and refuses a request with frames (a
+    reduced granite holds the pool)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.request import Request
+    from repro_torch.models import build_model
+    from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
+
+    ecfg = EngineConfig(max_slots=2, max_seq_len=64, block_size=16,
+                        kv_blocks=8, attention_backend="paged-cuda",
+                        dtype=torch.bfloat16, device="cuda")
+    try:
+        ContinuousBatchingEngine(model, params, ecfg, model_name="m")
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, f"{model.cfg.name}: the page pool took it")
+    g = build_model(get_arch(GRANITE).reduced(num_layers=1, d_model=64))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    pool = ContinuousBatchingEngine(g, g.init(gen, torch.bfloat16, "cuda"),
+                                    ecfg, model_name="m")
+    r = Request(prompt_tokens=[1, 2, 3], model="m", slo=1e9,
+                max_new_tokens=4)
+    check(pool.admit(r), "granite not admitted")
+    try:
+        pool.swap_model(model, params, "w")
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused and pool.num_active() == 1,
+          f"{model.cfg.name}: the page pool swapped to it")
+    if extras is not None:
+        w = Request(prompt_tokens=[1, 2, 3], model="m", slo=1e9,
+                    max_new_tokens=4, extras=extras)
+        check(not pool.can_admit(w), "the page pool took frames")
+        try:
+            pool.admit(Request(prompt_tokens=[1, 2, 3], model="m", slo=1e9,
+                               max_new_tokens=4), extras=extras)
+            refused = False
+        except ValueError:
+            refused = True
+        check(refused, "paged admit(extras=...) did not raise")
+    log(f"  [{tag}] paged-cuda refuses {model.cfg.name} at construction and "
+        f"at a swap (nothing flushed)"
+        + (", and a request with frames (can_admit false, admit "
+           "ValueError)" if extras is not None else ""))
+
+
+def hybrid_encdec_phase() -> dict:
+    """zamba2-1.2b and whisper-medium whole (full width and depth), bf16,
+    random weights from a seed, one after the other, each freed before
+    the next: the kernels at their shapes, then 8 requests through the
+    controller and agent on the dense backend (zamba2 twice in float,
+    bitwise equal, and once with int8 KV; whisper with random frames of
+    (1500, 1024) on every request), the eviction check, the page pool's
+    refusals, and the step and admission times.  Returns the launches of
+    the controlled runs, summed per kernel."""
+    from repro_torch.models import build_model
+
+    tag = "hybrid-encdec"
+    rng = np.random.default_rng(22)
+    total = dict.fromkeys(KERNELS, 0)
+    for seed, arch in enumerate(HYBRID_ENCDEC):
+        t0 = time.monotonic()
+        cfg, model, params, gen = _init_cut(arch, 10 + seed, tag)
+        vocab = cfg.vocab_size
+        if cfg.arch_type == "hybrid":
+            max_seq = ZAMBA_MAX_SEQ
+            prompts = [rng.integers(0, vocab, size=n).tolist()
+                       for n in ZAMBA_PROMPTS]
+            extras = [None] * len(prompts)
+            Q = cfg.ssm.chunk_size
+            ssd_lengths = [-(-n // Q) * Q for n in ZAMBA_PROMPTS]
+            admission = ("512 tokens", {"tokens": torch.arange(
+                512, dtype=torch.int32, device="cuda")[None] % vocab})
+        else:
+            max_seq = WHISPER_MAX_SEQ
+            prompts = [rng.integers(0, vocab, size=int(n)).tolist()
+                       for n in rng.integers(4, 33, size=8)]
+            F = cfg.encoder.num_frames
+            extras = [{"frame_embeds": torch.randn(
+                (F, cfg.d_model), generator=gen, device="cuda").to(
+                    torch.bfloat16)} for _ in prompts]
+            ssd_lengths = ()
+            admission = (f"the encoder over {F} frames and a 32-token prompt",
+                         {"tokens": torch.arange(32, dtype=torch.int32,
+                                                 device="cuda")[None],
+                          "frame_embeds": extras[0]["frame_embeds"][None]})
+        lengths = [len(p) + 8 for p in prompts]
+        hybrid_encdec_kernels(tag, cfg, lengths, max_seq + 1, ssd_lengths)
+        from repro_torch.serving import EngineConfig
+        hw = _calibrate(model, params, EngineConfig(
+            max_slots=8, max_seq_len=max_seq, attention_backend="cuda",
+            dtype=torch.bfloat16, device="cuda"), cfg.name)
+        log(f"  [{tag}] {cfg.name} profile (calibrate_from_engine"
+            + (", zero frames added to its prompts" if cfg.encoder else "")
+            + f"): prefill_time {hw.prefill_time:.4f} s per 1k tokens, "
+            f"decode_per_token {hw.decode_per_token:.5f} s")
+        runs = []
+        variants = [("float", model)]
+        if cfg.arch_type == "hybrid":
+            variants += [("float replay", model),
+                         ("int8 KV", build_model(dataclasses.replace(
+                             cfg, kv_quant=True)))]
+        for label, m in variants:
+            out, launches, _ = controlled_run(
+                tag, f"{arch} {label}", m, params, prompts, extras, max_seq,
+                hw)
+            runs.append(out)
+            for k, n in launches.items():
+                total[k] += n
+        if cfg.arch_type == "hybrid":
+            check(runs[1] == runs[0], f"{arch}: the replay is not bitwise")
+            same = sum(a == b for a, b in zip(runs[0], runs[2]))
+            log(f"  [{tag}] {arch}: the replay's tokens equal the first "
+                f"run's; int8 KV against float: {same} of 8 requests equal "
+                f"(not gated)")
+        evict_resume_run(tag, f"{arch} eviction", model, params, prompts,
+                         extras, max_seq)
+        _refusals(tag, model, params,
+                  extras[0] if cfg.encoder is not None else None)
+        hybrid_encdec_timings(tag, cfg, model, params, max_seq, admission)
+        log(f"  [{tag}] {arch}: memory_allocated "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        del model, params, extras, admission
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        log(f"  [{tag}] {arch} in {time.monotonic() - t0:.1f} s")
+    return total
+
+
 def hetero_phase() -> None:
     """``serve --hetero --threaded`` over 3 instances on full-width
     granite-3-2b (bf16, page pool), launch counts set to 0 just before and
@@ -2546,9 +2985,12 @@ def reference_phase() -> None:
     the page pool and deepseek-67b (group 8) on the dense backend, both at
     head_dim 128; reduced qwen3-moe on the page pool and on the dense
     backend through the single-shot prefill, and reduced llava with patch
-    embeddings on the dense backend (groups 8 and 7, head_dim 128).
-    Attention runs in float must give identical tokens; mamba2's may part
-    only at a near tie, as an int8 run may.  An int8 run may part
+    embeddings on the dense backend (groups 8 and 7, head_dim 128);
+    reduced zamba2 (four layers, two attention sites) and reduced whisper
+    with frame embeddings on every request, on the dense backend through
+    the single-shot prefill (group 1, head_dim 64).  Attention runs in
+    float must give identical tokens; mamba2's and zamba2's (through the
+    SSD kernel) may part only at a near tie, as an int8 run may.  An int8 run may part
     from the CPU's at a near tie: the two devices' f32 projections differ
     in the last bits, which can put one value on the other side of an int8
     rounding boundary, a one-step change that moves the logits by ~1e-4;
@@ -2574,6 +3016,9 @@ def reference_phase() -> None:
         num_layers=2, d_model=1024, num_heads=8, num_kv_heads=1)
     llava = get_arch("llava-next-34b").reduced(
         num_layers=2, d_model=896, num_heads=7, num_kv_heads=1)
+    # the hybrid (two sites) and the encoder-decoder at group 1, D 64
+    zamba = get_arch("zamba2-1.2b").reduced(num_layers=4)
+    whisper = get_arch("whisper-medium").reduced(num_layers=2)
     check(danube.sliding_window == 64, "reduced h2o-danube window")
     rng = np.random.default_rng(2)
     common = rng.integers(0, 100, size=24).tolist()
@@ -2594,7 +3039,10 @@ def reference_phase() -> None:
              0),
             ("llava-next-34b, dense with patch embeddings", llava, "cuda",
              16),
-            ("mamba2, dense single-shot prefill", mamba, "cuda", 16)):
+            ("mamba2, dense single-shot prefill", mamba, "cuda", 16),
+            ("zamba2-1.2b, dense single-shot prefill", zamba, "cuda", 16),
+            ("whisper-medium, dense with frame embeddings", whisper, "cuda",
+             16)):
         model = build_model(cfg)
         gen = torch.Generator(device="cuda")
         gen.manual_seed(1)
@@ -2608,6 +3056,10 @@ def reference_phase() -> None:
             patches = [{"patch_embeds": (0.02 * rng.standard_normal(
                 (cfg.vision.num_patch_tokens, cfg.d_model))).astype(
                     np.float32)} for _ in prompts]
+        if cfg.encoder is not None:
+            patches = [{"frame_embeds": rng.standard_normal(
+                (cfg.encoder.num_frames, cfg.d_model)).astype(np.float32)}
+                for _ in prompts]
         outs = []
         for device, p in (("cuda", params),
                           ("cpu", _to_device(params, "cpu"))):
@@ -2644,7 +3096,8 @@ def reference_phase() -> None:
             f"near-tie flip (call, row, cpu top-2 gap, max |logit diff| "
             f"before it): {flip}; prefix_hits {gs.prefix_hits}/"
             f"{ws.prefix_hits}, resumes {gs.resumes}/{ws.resumes}")
-        check(got == want or ((cfg.kv_quant or cfg.arch_type == "ssm")
+        check(got == want or ((cfg.kv_quant
+                               or cfg.arch_type in ("ssm", "hybrid"))
                               and flip is not None),
               f"{label}: cuda {got} != cpu {want}")
         check(gs.resumes >= 1, f"{label}: the trace missed the resume")
@@ -3064,6 +3517,12 @@ def main() -> int:
     t0 = time.monotonic()
     moe_vlm_phase()
     log(f"[moe-vlm] ok in {time.monotonic() - t0:.1f} s")
+
+    log(f"[hybrid-encdec] {', '.join(HYBRID_ENCDEC)}: whole, bf16")
+    t0 = time.monotonic()
+    for k, n in hybrid_encdec_phase().items():
+        launches[k] = launches.get(k, 0) + n
+    log(f"[hybrid-encdec] ok in {time.monotonic() - t0:.1f} s")
 
     log("[hetero] serve --hetero --threaded, 3 instances, granite-3-2b")
     t0 = time.monotonic()

@@ -1,5 +1,5 @@
 """Architecture registry of the port: ``--arch <id>`` resolution for the
-launchers.  Only the families the port can serve are registered."""
+launchers, every architecture of the reference's registry."""
 from __future__ import annotations
 
 from typing import Dict
@@ -13,11 +13,13 @@ from repro_torch.configs.llava_next_34b import CONFIG as LLAVA_NEXT_34B
 from repro_torch.configs.mamba2_130m import CONFIG as MAMBA2_130M
 from repro_torch.configs.qwen1_5_32b import CONFIG as QWEN1_5_32B
 from repro_torch.configs.qwen3_moe_30b_a3b import CONFIG as QWEN3_MOE_30B_A3B
+from repro_torch.configs.whisper_medium import CONFIG as WHISPER_MEDIUM
+from repro_torch.configs.zamba2_1_2b import CONFIG as ZAMBA2_1_2B
 
 ARCHITECTURES: Dict[str, ModelConfig] = {
     c.name: c for c in (GRANITE_3_2B, QWEN3_MOE_30B_A3B, H2O_DANUBE_1_8B,
-                        DEEPSEEK_67B, QWEN1_5_32B, MAMBA2_130M,
-                        LLAVA_NEXT_34B, DBRX_132B)}
+                        DEEPSEEK_67B, ZAMBA2_1_2B, QWEN1_5_32B, MAMBA2_130M,
+                        LLAVA_NEXT_34B, DBRX_132B, WHISPER_MEDIUM)}
 
 
 def get_arch(name: str) -> ModelConfig:

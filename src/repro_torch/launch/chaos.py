@@ -52,7 +52,9 @@ tick double-checks the block/queue/terminal-state invariants:
 
 The soak serves ``--arch`` reduced to 1 layer of width 64 (weights from a
 ``torch.Generator`` seeded with ``--seed``), or the weights a caller
-passes to ``run_soak`` / ``check_soak``.  ``--hetero`` gives instance i
+passes to ``run_soak`` / ``check_soak``; the page pool takes the
+transformers only (the engine refuses mamba2, zamba2 and whisper, as the
+reference's does).  ``--hetero`` gives instance i
 the fast / mid / slow static profile of tier ``i % 3`` (``_hw``).
 """
 from __future__ import annotations
@@ -649,7 +651,10 @@ def check_soak(args, stats: dict, registry: Optional[dict] = None
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default="granite-3-2b")
+    ap.add_argument("--arch", default="granite-3-2b",
+                    help="arch served on the page pool: a transformer "
+                         "(mamba2-130m, zamba2-1.2b and whisper-medium "
+                         "have no pageable KV and are refused)")
     ap.add_argument("--instances", type=int, default=None,
                     help="engine count (default 2; 3 for combined, which "
                          "stages faults on three distinct engines)")

@@ -5,9 +5,13 @@ global scheduler, LSO agents — against a Poisson workload and prints SLO
 attainment and throughput, with every engine serving through the CUDA
 kernels (or, with ``--device cpu``, their plain versions): ``--backend
 paged-cuda`` (the default) over the KV page pool, ``--backend cuda`` over
-dense per-slot caches, which also serve sliding-window models and mamba2
-(its state in place of the KV cache, its prefill through the SSD scan
-kernel); the page pool refuses mamba2, as the reference's does.
+dense per-slot caches, which also serve sliding-window models, mamba2
+and the zamba2 hybrid (their state in place of the KV cache, their prefill
+through the SSD scan kernel; zamba2's attention sites through the dense
+decode kernel); the page pool refuses mamba2 and zamba2, as the
+reference's does.  whisper-medium serves in neither driver: its requests
+need frame embeddings (``req.extras``), which this workload, like the
+reference's, does not draw, so its calibration's prefill raises.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
       --requests 40 --rate 2.0
@@ -15,6 +19,8 @@ kernel); the page pool refuses mamba2, as the reference's does.
       --arch2 h2o-danube-1.8b          # two models: the swap LSO
   PYTHONPATH=src python -m repro_torch.launch.serve --backend cuda \
       --arch mamba2-130m               # an SSM (--arch2 mamba2-130m: swaps)
+  PYTHONPATH=src python -m repro_torch.launch.serve --backend cuda \
+      --arch zamba2-1.2b               # the hybrid
   PYTHONPATH=src python -m repro_torch.launch.serve --threaded \
       --instances 2                    # one thread per engine
   PYTHONPATH=src python -m repro_torch.launch.serve --compare-drivers \
@@ -282,9 +288,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--backend", default=None,
                     choices=[None, "cuda", "paged-cuda"],
                     help="attention backend: None / paged-cuda = the KV page "
-                         "pool (full attention only; refuses mamba2-130m, "
-                         "which has no pageable KV), cuda = dense per-slot "
-                         "caches (sliding-window models and mamba2 too)")
+                         "pool (full attention only; refuses mamba2-130m "
+                         "and zamba2-1.2b, which have no pageable KV), "
+                         "cuda = dense per-slot caches (sliding-window "
+                         "models, mamba2 and zamba2 too)")
     ap.add_argument("--prefix-sharing", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="refcounted shared-prefix KV pages")

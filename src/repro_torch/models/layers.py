@@ -1,5 +1,6 @@
-"""Shared building blocks: initializers, norms, RoPE, the SwiGLU MLP,
-embedding, the vocab-padding mask and the attention masks (PyTorch twins of
+"""Shared building blocks: initializers, norms (RMS and layer norm), RoPE,
+the SwiGLU and GELU MLPs, sinusoidal positions, embedding, the
+vocab-padding mask and the attention masks (PyTorch twins of
 ``src/repro/models/layers.py``).
 
 Model code is functional: ``init_*`` builds nested dicts of tensors and the
@@ -42,6 +43,17 @@ def init_swiglu_mlp(gen: torch.Generator, d_model: int, d_ff: int,
     }
 
 
+def init_gelu_mlp(gen: torch.Generator, d_model: int, d_ff: int,
+                  dtype: torch.dtype, device: torch.device):
+    """Whisper-style two-matrix GELU MLP (with biases, zero at init)."""
+    return {
+        "fc1": dense_init(gen, d_model, d_ff, dtype, device),
+        "b1": torch.zeros(d_ff, dtype=dtype, device=device),
+        "fc2": dense_init(gen, d_ff, d_model, dtype, device),
+        "b2": torch.zeros(d_model, dtype=dtype, device=device),
+    }
+
+
 # ---------------------------------------------------------------------------
 # forward pieces
 # ---------------------------------------------------------------------------
@@ -61,6 +73,18 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     var = x.square().mean(dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * scale.float()).to(dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm in f32 with the population variance, as the reference's
+    ``jnp.var``."""
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, keepdim=True, correction=0)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dtype)
 
 
 def rope_frequencies(head_dim: int, theta: float,
@@ -86,6 +110,22 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 def swiglu_mlp(params, x: torch.Tensor) -> torch.Tensor:
     gate = F.silu(x @ params["gate"])
     return (gate * (x @ params["up"])) @ params["down"]
+
+
+def gelu_mlp(params, x: torch.Tensor) -> torch.Tensor:
+    """GELU in its tanh form, the default of the reference's
+    ``jax.nn.gelu``."""
+    h = F.gelu(x @ params["fc1"] + params["b1"], approximate="tanh")
+    return h @ params["fc2"] + params["b2"]
+
+
+def sinusoidal_positions(length: int, dim: int,
+                         device=None) -> torch.Tensor:
+    """(length, dim) fixed sinusoidal embeddings (whisper's encoder), f32."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    idx = torch.arange(dim // 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / (10000.0 ** (2 * idx / dim))
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
 
 
 def embed_tokens(params, tokens: torch.Tensor) -> torch.Tensor:

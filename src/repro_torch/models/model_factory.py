@@ -1,24 +1,31 @@
 """Model interface of the port (twin of ``src/repro/models/model_factory.py``
-for ``arch_type`` ``"dense"``, ``"moe"`` and ``"vlm"`` (the transformer:
-the training loss and every serving path) and ``"ssm"`` (mamba2:
-single-shot prefill and decode)).
+for every ``arch_type``: ``"dense"``, ``"moe"`` and ``"vlm"`` (the
+transformer: the training loss and every serving path), ``"ssm"``
+(mamba2), ``"hybrid"`` (zamba2) and ``"audio"`` (the whisper
+encoder-decoder), the last three with single-shot prefill and decode).
 
 ``build_model(cfg)`` returns a ``Model`` with:
   * ``init(gen, dtype, device)``  -> params (random, from ``gen``)
   * ``loss(params, batch, remat=True)`` -> (scalar, metrics)
   * ``init_cache(batch, max_seq, dtype, device)`` -> dense per-slot caches
-    (the SSM's conv and state)
+    (the SSM's conv and state; the hybrid's also its sites' KV under
+    ``"kv"``; the encoder-decoder's self caches under ``"self"`` and its
+    cross K/V)
   * ``decode_step(params, cache, tokens, lengths)``
   * ``prefill(params, batch, cache)`` -> (last logits, cache): single-shot
-    prefill of ``batch["tokens"]`` (after a VLM's ``batch["patch_embeds"]``)
-    into a dense per-slot cache
+    prefill of ``batch["tokens"]`` (after a VLM's ``batch["patch_embeds"]``;
+    an encoder-decoder's decoder after its encoder over
+    ``batch["frame_embeds"]``) into a dense per-slot cache
   * ``prefill_chunk(params, cache, tokens, starts, valid)``
   * ``init_paged_cache(num_blocks, block_size, dtype, device)`` -> page pools
   * ``prefill_chunk_paged(params, cache, tokens, starts, valid, block_table)``
   * ``decode_step_paged(params, cache, tokens, lengths, block_table)``
-The last four are None for the SSM (its state carry needs single-shot
-prefill; it has no pageable KV), as in the reference.  Every serving path
-returns ``(logits, cache)`` and updates the cache in place;
+The last four are None for the SSM and the hybrid (their state carry
+needs single-shot prefill; they have no pageable KV) and for the
+encoder-decoder (its cross-attention), as in the reference.  The loss of
+those three raises ``NotImplementedError``: their training is not ported.
+Every serving path returns ``(logits, cache)`` and updates the cache in
+place;
 ``cfg.kv_quant`` makes every KV cache int8 with per-row scales.
 ``batch_struct`` / ``materialize_batch`` give one step's data inputs,
 the modality stubs included, as shapes or as random tensors.
@@ -32,7 +39,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import ssm_lm, transformer
+from repro_torch.models import encdec, hybrid, ssm_lm, transformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,9 +61,11 @@ def build_model(cfg: ModelConfig) -> Model:
         return _build_transformer(cfg)
     if cfg.arch_type == "ssm":
         return _build_ssm(cfg)
-    raise NotImplementedError(
-        f"the port serves dense, MoE and VLM decoders and mamba2, got "
-        f"arch_type {cfg.arch_type!r} ({cfg.name})")
+    if cfg.arch_type == "hybrid":
+        return _build_hybrid(cfg)
+    if cfg.arch_type == "audio":
+        return _build_encdec(cfg)
+    raise ValueError(f"unknown arch_type {cfg.arch_type}")
 
 
 def _build_transformer(cfg: ModelConfig) -> Model:
@@ -106,6 +115,41 @@ def _build_ssm(cfg: ModelConfig) -> Model:
     )
 
 
+def _build_hybrid(cfg: ModelConfig) -> Model:
+    return Model(
+        cfg=cfg,
+        init=lambda gen, dtype=torch.float32, device="cuda":
+            hybrid.init_hybrid_lm(gen, cfg, dtype, resolve_device(device)),
+        loss=lambda params, batch, remat=True:
+            hybrid.loss_fn(params, cfg, batch, remat=remat),
+        init_cache=lambda batch, max_seq, dtype=torch.float32, device="cuda":
+            hybrid.init_state(cfg, batch, max_seq, dtype,
+                              resolve_device(device)),
+        decode_step=lambda params, cache, tokens, lengths:
+            hybrid.decode_step(params, cfg, tokens, lengths, cache),
+        prefill=lambda params, batch, cache:
+            hybrid.prefill(params, cfg, batch["tokens"], cache),
+    )
+
+
+def _build_encdec(cfg: ModelConfig) -> Model:
+    return Model(
+        cfg=cfg,
+        init=lambda gen, dtype=torch.float32, device="cuda":
+            encdec.init_encdec_lm(gen, cfg, dtype, resolve_device(device)),
+        loss=lambda params, batch, remat=True:
+            encdec.loss_fn(params, cfg, batch, remat=remat),
+        init_cache=lambda batch, max_seq, dtype=torch.float32, device="cuda":
+            encdec.init_cache(cfg, batch, max_seq, dtype,
+                              resolve_device(device)),
+        decode_step=lambda params, cache, tokens, lengths:
+            encdec.decode_step(params, cfg, tokens, lengths, cache),
+        prefill=lambda params, batch, cache:
+            encdec.prefill(params, cfg, batch["tokens"], cache,
+                           batch.get("frame_embeds")),
+    )
+
+
 # ---------------------------------------------------------------------------
 # modality stubs for one step's inputs
 # ---------------------------------------------------------------------------
@@ -115,9 +159,9 @@ def batch_struct(cfg: ModelConfig, batch: int, seq: int, kind: str,
                  ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
     """name -> (shape, dtype) of one step's data inputs (``kind``:
     ``"train"``, ``"prefill"`` or ``"decode"``), the reference's
-    ``batch_struct`` for the families the port serves (the
-    encoder-decoder's frames wait for that family); a VLM's prefill spends
-    ``num_patch_tokens`` of ``seq`` on the patch prefix."""
+    ``batch_struct``; a VLM's prefill spends ``num_patch_tokens`` of
+    ``seq`` on the patch prefix, and an encoder-decoder's step carries
+    its ``num_frames`` frame embeddings beside the tokens."""
     def patches():
         return ((batch, cfg.vision.num_patch_tokens,
                  cfg.vision.patch_embed_dim or cfg.d_model), dtype)
@@ -132,6 +176,9 @@ def batch_struct(cfg: ModelConfig, batch: int, seq: int, kind: str,
             out = {"tokens": ((batch, n_text), torch.int32)}
         if cfg.vision is not None:
             out["patch_embeds"] = patches()
+        if cfg.encoder is not None:
+            out["frame_embeds"] = ((batch, cfg.encoder.num_frames,
+                                    cfg.d_model), dtype)
         return out
     if kind == "decode":
         return {"tokens": ((batch,), torch.int32),

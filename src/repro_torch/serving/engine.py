@@ -23,11 +23,17 @@ changed is the compute:
     int8 twin) under full attention, the chunk step and rolling-window
     decode run plain PyTorch, as the reference runs jnp there.  Prefix
     sharing is inert on this layout, as in the reference.  An SSM
-    (mamba2) serves only here: its per-slot state ``{"conv", "ssm"}``
-    takes the place of the KV cache, and it is admitted through the
-    reference's single-shot prefill (``_prefill_one``: batch 1 at the
-    exact prompt length, whose scan is the CUDA SSD kernel on a CUDA
-    device), since its state carry has no chunked prefill;
+    (mamba2), the hybrid (zamba2) and the encoder-decoder (whisper) serve
+    only here: their per-slot state (``{"conv", "ssm"}``, the hybrid's
+    also ``"kv"``, one dense KV cache per attention site; the
+    encoder-decoder's ``{"self", "cross_k", "cross_v"}``) takes the place
+    of the KV cache, and they are admitted through the reference's
+    single-shot prefill (``_prefill_one``: batch 1 at the exact prompt
+    length, whose scan is the CUDA SSD kernel on a CUDA device), since
+    a state carry or a cross-attention has no chunked prefill.  Each
+    slot operation (insert, snapshot, restore) takes axis 1 of every
+    leaf of the nested cache: a KV leaf without its write-sink column,
+    every other leaf (conv, state, cross K/V) whole;
   * the cache is updated in place; COW page copies land before any
     dispatch or snapshot;
   * the block table is uploaded only when ``BlockManager.table_version``
@@ -63,8 +69,9 @@ copies into the slot; the page pool refuses it with the reference's
 ``ValueError``.  ``fork_slot`` clones a decoding request onto shared pages,
 the tail's copy-on-write landing at the next dispatch.
 
-Modality extras (a VLM's ``patch_embeds``, from ``admit(req, extras=...)``
-or ``req.extras``) ride the single-shot prefill on ``"cuda"``, moved to the
+Modality extras (a VLM's ``patch_embeds``, an encoder-decoder's
+``frame_embeds``, from ``admit(req, extras=...)`` or ``req.extras``) ride
+the single-shot prefill on ``"cuda"``, moved to the
 engine's device and dtype; the page pool refuses them as the reference
 does (``can_admit`` false, ``admit`` a ``ValueError``).  As in the
 reference, the slot's length after that prefill is the text's,
@@ -94,9 +101,21 @@ from repro_torch.models.model_factory import Model
 from repro_torch.serving.kv_cache import BlockManager
 
 ATTENTION_BACKENDS = ("cuda", "paged-cuda")
+# the leaves of a KV cache (models/attention.py), under whatever subtree
+_KV_LEAVES = ("k", "v", "k_scale", "v_scale")
 # backend names of the reference engine; "pallas" / "paged-pallas" are
 # served here as "cuda" / "paged-cuda"
 _REFERENCE_ONLY_BACKENDS = ("xla", "pallas", "paged-xla", "paged-pallas")
+
+
+def _map_tree(fn: Callable, tree: Dict[str, Any], *others: Dict[str, Any]
+              ) -> Dict[str, Any]:
+    """``fn(name, leaf, *other_leaves)`` over the leaves of a nested dict
+    of tensors (a cache), ``others`` of the same structure; returns the
+    results in that structure."""
+    return {k: _map_tree(fn, v, *(o[k] for o in others))
+            if isinstance(v, dict) else fn(k, v, *(o[k] for o in others))
+            for k, v in tree.items()}
 
 
 @dataclasses.dataclass
@@ -247,7 +266,8 @@ class ContinuousBatchingEngine:
 
     def _check_layout(self, model: Model) -> None:
         """Refuse, before any state changes, what the page pool cannot
-        serve: a model without pageable KV (an SSM) or with a sliding
+        serve: a model without pageable KV (an SSM, the hybrid, the
+        encoder-decoder) or with a sliding
         window, and the single-shot prefill, which writes dense per-slot
         caches."""
         if self.paged and model.init_paged_cache is None:
@@ -332,34 +352,36 @@ class ContinuousBatchingEngine:
                 return i
         return None
 
-    def _slot_index(self, b: int) -> tuple:
-        """Slot ``b`` of every dense cache leaf: the KV leaves (layers, B,
-        KVH, cache_len + 1, ...) without their write-sink column, an SSM's
-        conv and state leaves whole."""
-        if "k" not in self.cache:
-            return (slice(None), b)
-        S = self.cache["k"].shape[3] - 1
-        return (slice(None), b, slice(None), slice(0, S))
+    @staticmethod
+    def _slot_index(name: str, leaf: torch.Tensor, b: int) -> tuple:
+        """Slot ``b`` of one dense cache leaf, axis 1 of every leaf: a KV
+        leaf (layers or sites, B, KVH, cache_len + 1, ...) without its
+        write-sink column; an SSM's conv and state and an
+        encoder-decoder's cross K/V whole."""
+        if name in _KV_LEAVES:
+            return (slice(None), b, slice(None),
+                    slice(0, leaf.shape[3] - 1))
+        return (slice(None), b)
 
-    def _extract_cache(self, b: int) -> Dict[str, torch.Tensor]:
+    def _extract_cache(self, b: int) -> Dict[str, Any]:
         """Dense eviction snapshot: slot ``b`` of every leaf, copied to CPU
-        tensors (a copy on the CPU too: the slot is rewritten while the
-        snapshot waits)."""
-        idx = self._slot_index(b)
-        return {name: leaf[idx].to("cpu", copy=True)
-                for name, leaf in self.cache.items()}
+        tensors in the cache's own (nested) structure (a copy on the CPU
+        too: the slot is rewritten while the snapshot waits)."""
+        return _map_tree(lambda name, leaf: leaf[
+            self._slot_index(name, leaf, b)].to("cpu", copy=True),
+            self.cache)
 
-    def _restore_cache(self, snapshot: Dict[str, torch.Tensor],
-                       b: int) -> None:
-        idx = self._slot_index(b)
-        for name, leaf in self.cache.items():
-            leaf[idx] = snapshot[name].to(self.device, leaf.dtype)
+    def _restore_cache(self, snapshot: Dict[str, Any], b: int) -> None:
+        def put(name, leaf, snap):
+            leaf[self._slot_index(name, leaf, b)] = snap.to(self.device,
+                                                            leaf.dtype)
+        _map_tree(put, self.cache, snapshot)
 
-    def _insert_cache(self, slot_cache: Dict[str, torch.Tensor],
-                      b: int) -> None:
+    def _insert_cache(self, slot_cache: Dict[str, Any], b: int) -> None:
         """Write a batch-1 cache (the single-shot prefill's) into slot b."""
-        for name, leaf in self.cache.items():
-            leaf[:, b] = slot_cache[name][:, 0]
+        def put(name, leaf, one):
+            leaf[:, b] = one[:, 0]
+        _map_tree(put, self.cache, slot_cache)
 
     def _prefill_one(self, prompt: np.ndarray, extras: Dict[str, Any]
                      ) -> Tuple[int, Dict[str, Any]]:
@@ -596,7 +618,8 @@ class ContinuousBatchingEngine:
             self.lengths[slot] = start
             self.slots[slot] = req
         else:
-            # single-shot path (the SSM's state carry; a transformer at
+            # single-shot path (the SSM's and the hybrid's state carry,
+            # the encoder-decoder's frames; a transformer at
             # prefill_chunk_tokens <= 0 or with modality extras).  Compute
             # first: a raising prefill must leave the engine clean.
             tok, cache1 = self._prefill_one(np.asarray(req.prompt_tokens), ex)  # qlint: disable=host-sync-in-hot-path -- host prompt list -> array for the one-shot prefill path
@@ -825,7 +848,8 @@ class ContinuousBatchingEngine:
     def swap_model(self, model: Model, params, model_name: str) -> List[Request]:
         """Flush, replace the weights and rebuild the cache for the new
         model's shapes (layers, KV heads, head_dim, ``cache_len``, int8;
-        an SSM's conv and state)."""
+        an SSM's conv and state, the hybrid's sites, the
+        encoder-decoder's cross K/V)."""
         self._check_layout(model)
         t0 = self._wall()
         evicted = self.flush()

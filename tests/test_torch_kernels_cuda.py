@@ -245,10 +245,13 @@ def test_paged_prefill_quant_kernel_matches_plain(dev, dtype, H, KVH, D, bs,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("quant", [False, True])
 @pytest.mark.parametrize("H,KVH,D,S", [(32, 8, 64, 129), (32, 8, 80, 65),
-                                        (6, 2, 128, 300), (8, 1, 32, 7)])
+                                        (6, 2, 128, 300), (8, 1, 32, 7),
+                                        (32, 32, 64, 545), (16, 16, 64, 65)])
 def test_decode_kernels_match_plain(dev, dtype, quant, H, KVH, D, S):
     """Dense decode: lengths 0, 1, S (the full slot) and in between; the
-    tail past lengths is masked, S need not be a tile multiple."""
+    tail past lengths is masked, S need not be a tile multiple.  The last
+    two shapes are the serve paths' of zamba2's attention sites (32 heads
+    on 32, a 545-column cache) and whisper's decoder (16 on 16, 65)."""
     rng = np.random.default_rng(5)
     lengths = np.array([1, S, 0, S // 2 + 1, max(S - 3, 1)], np.int32)
     B = len(lengths)
@@ -482,7 +485,8 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(dev):
 
 # (B, L, H, P, G, N, chunk): the JAX kernel tests' shapes (G > 1 in the
 # third), mamba2-130m's serving prefill (one chunk), a long prefill, a
-# batch, and zamba2's SSM widths (64 heads, N 64); then the kernel's
+# batch, and zamba2's SSM widths (64 heads, N 64), also at its serve
+# prefill's shortest and longest padded prompts (64 and 512); then the kernel's
 # P-slice edges: P 8 (one slice), 16, 32 and 64 at mamba2's N and chunk,
 # P 24 (a last slice half full), and ragged widths whose rows go through
 # registers and whose chunk, state and slice all pad (Q 4, N 5, P 6); then
@@ -495,6 +499,8 @@ SSD_SHAPES = {"(1,64,2,16,1,8,16)": (1, 64, 2, 16, 1, 8, 16),
               "mamba2 L2048": (1, 2048, 24, 64, 1, 128, 64),
               "mamba2 B4 L512": (4, 512, 24, 64, 1, 128, 64),
               "zamba2 widths": (1, 256, 64, 64, 1, 64, 64),
+              "zamba2 serve L64": (1, 64, 64, 64, 1, 64, 64),
+              "zamba2 serve L512": (1, 512, 64, 64, 1, 64, 64),
               "P8": (1, 192, 4, 8, 1, 128, 64),
               "P16": (2, 128, 3, 16, 1, 128, 64),
               "P32": (1, 128, 2, 32, 1, 128, 64),
@@ -595,3 +601,97 @@ def test_ssd_scan_wrapper_refuses_what_the_kernel_does_not_take(dev):
         ss.ssd_scan(x.requires_grad_(), dt, A, Bm, Cm, 16)
     with torch.no_grad():
         ss.ssd_scan(x, dt, A, Bm, Cm, 16)
+
+
+# ---------------------------------------------------------------------------
+# the hybrid and the encoder-decoder served on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def _logged(model, calls):
+    """``model`` with its serving paths appending their logits (f32, on the
+    CPU) to ``calls``."""
+    import dataclasses
+
+    def rec(fn):
+        def run(*args):
+            logits, cache = fn(*args)
+            calls.append(logits.detach().float().cpu())
+            return logits, cache
+        return run
+    return dataclasses.replace(model, prefill=rec(model.prefill),
+                               decode_step=rec(model.decode_step))
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "whisper-medium"])
+def test_hybrid_and_encdec_engines_match_the_cpu(dev, arch):
+    """Reduced zamba2 (four layers, two attention sites) and reduced
+    whisper (frame embeddings on every request) served on the dense
+    backend from the same f32 weights on the card (the kernels) and on
+    the CPU (their plain versions), with decode bursts of 2 and one
+    request evicted mid-decode and resumed.  whisper's tokens must be
+    equal; zamba2's (its prefill through the SSD kernel) too, or parting
+    first where the CPU's two best logits lie within 1e-3, its logits
+    within 1e-3 up to there."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.request import Request
+    from repro_torch.models import build_model
+    from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
+
+    cfg = get_arch(arch).reduced(num_layers=4 if arch.startswith("zamba")
+                                 else 2)
+    model = build_model(cfg)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = model.init(gen, torch.float32, "cpu")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 100, size=n).tolist() for n in (5, 17, 30, 9)]
+    frames = [None] * len(prompts)
+    if cfg.encoder is not None:
+        frames = [{"frame_embeds": rng.standard_normal(
+            (cfg.encoder.num_frames, cfg.d_model)).astype(np.float32)}
+            for _ in prompts]
+    runs = []
+    for device in ("cuda", "cpu"):
+        p = params if device == "cpu" else {
+            k: ([{n: _to(v, device) for n, v in b.items()} for b in x]
+                if isinstance(x, list) else _to(x, device))
+            for k, x in params.items()}
+        calls = []
+        eng = ContinuousBatchingEngine(_logged(model, calls), p, EngineConfig(
+            max_slots=4, max_seq_len=64, decode_burst=2, device=device,
+            attention_backend="cuda", debug_invariants=True),
+            model_name="m")
+        reqs = [Request(prompt_tokens=pr, model="m", slo=1e9,
+                        max_new_tokens=10, extras=ex)
+                for pr, ex in zip(prompts, frames)]
+        for r in reqs:
+            assert eng.admit(r)
+        eng.steps()
+        eng.evict_request(reqs[1].req_id)
+        eng.steps()
+        assert eng.admit(reqs[1])
+        for _ in range(100):
+            eng.steps()
+            if all(r.finished() for r in reqs):
+                break
+        assert all(r.finished() for r in reqs) and eng.stats.resumes == 1
+        runs.append(([r.output_tokens for r in reqs], calls))
+    (got, g_calls), (want, w_calls) = runs
+    if cfg.ssm is None:
+        assert got == want
+        return
+    for a, b in zip(g_calls, w_calls):
+        flips = (a.argmax(-1) != b.argmax(-1)).nonzero().flatten().tolist()
+        for r in flips:
+            top2 = b[r].topk(2).values
+            assert float(top2[0] - top2[1]) <= 1e-3
+        if flips:
+            return
+        torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3)
+    assert got == want
+
+
+def _to(x, device):
+    if isinstance(x, dict):
+        return {k: _to(v, device) for k, v in x.items()}
+    return x.to(device)
