@@ -59,7 +59,12 @@ Phases, in order; any failure exits non-zero before the result lines:
      beside its bound (the visible half of the causal square; f32 at the
      3xTF32 rate, with the CUDA-core rate's bound beside it) and
      ``scaled_dot_product_attention``, and, for reference, in bf16, with
-     a 64-token window (SDPA with a boolean mask) and at L 2048.  Then
+     a 64-token window (SDPA with a boolean mask) and at L 2048; then
+     at each training call of the ``[train]`` phase (f32: granite,
+     zamba2's sites, whisper's decoder, qwen3-moe, llava over 3392
+     positions) the Function's forward and gradients against the plain
+     version's, and its kernel, plain version, SDPA and backward (eager)
+     times beside its bound.  Then
      the SSD scan in f32 and bf16 (dt, A and the states f32), with and
      without an initial state, its final state returned, on the JAX
      tests' shapes (G > 1 among them), mamba2-130m's serving prefill (B 1,
@@ -70,7 +75,11 @@ Phases, in order; any failure exits non-zero before the result lines:
      serving prefill's shape (bf16, with the state in
      and out, as the engine calls it) beside its bound and the plain
      version (no single PyTorch call computes the scan: ``library_ms``
-     null), and for reference at L 512, L 2048 and B 4 L 512;
+     null), and for reference at L 512, L 2048 and B 4 L 512; then at
+     the training phase's calls (f32, B 2, L 512: mamba2's 24 heads of 64
+     at N 128, zamba2's 64 at N 64) the autograd Function's forward and
+     gradients against autograd of the plain version, and its kernel,
+     plain version and backward (eager) times beside its bound;
   4. serve phases, one per path, each with the launch counts set to 0 just
      before and read just after, through ``calibrate_registry`` /
      ``build_cluster`` / ``run_round_robin`` of
@@ -207,18 +216,28 @@ Phases, in order; any failure exits non-zero before the result lines:
      a near tie (``near_tie_parting``); so may mamba2 and zamba2 (dense
      backend, single-shot prefill through the SSD kernel on the card),
      whose float logits are checked the same way;
-  9. training phase, through ``repro_torch.launch.train.train`` with
-     ``use_pallas_attention`` set, float32, launch counts set to 0 just
-     before and read just after: 3 steps of full-width granite-3-2b
-     (batch 2, seq 512, remat) with finite losses and exactly 2 flash
-     launches per layer and step (the forward and each block's recompute),
-     its step times and peak memory; one step of the same weights and
-     batch with the flag off (step-0 loss within 1e-4 relative, gradient
-     norm within 1e-3); one full-width step of h2o-danube-1.8b (D 80);
- 10. training reference phase: reduced granite and h2o-danube (window 64,
-     seq 128) trained 3 steps on the card (the kernel) and on the CPU (the
-     plain version) from the same weights and data: losses and final
-     params within 1e-4.
+  9. training phase, through ``repro_torch.launch.train.train``, float32,
+     AdamW, remat, ``use_pallas_attention`` set, full width, each model
+     freed before the next, launch counts set to 0 just before each run
+     and read just after (exactly two a step of the flash kernel per
+     causal attention layer or hybrid site and of the SSD scan per mamba
+     layer, the forward and the remat recompute; no other kernel): 3
+     steps of granite-3-2b (batch 2, seq 512); one step of the same
+     weights and batch with the flag off (step-0 loss within 1e-4
+     relative, gradient norm within 1e-3); one step of h2o-danube-1.8b
+     (D 80); then (``TRAIN_RUNS``) mamba2-130m whole (3 steps, 2 x 512),
+     zamba2-1.2b whole (2 steps, 2 x 512; one more with the flag off,
+     checked as granite's), whisper-medium whole (2 steps, 2 x 448, 1500
+     random frames; the encoder's bidirectional attention plain),
+     qwen3-moe-30b-a3b and llava-next-34b (2880 random patch embeddings
+     before 1 x 512 text tokens) at full width and ``TRAIN_LAYERS``
+     layers, 2 steps each: losses, gradient norms, step times, peak
+     memory and launches printed, losses finite;
+ 10. training reference phase: each family reduced (2 layers, d_model
+     256; h2o-danube's window 64 under 128 tokens) trained 3 steps on the
+     card (the flash and SSD kernels) and on the CPU (their plain
+     versions) from the same weights, tokens and modality extras: losses
+     and final params within 1e-4 (``TRAIN_TOL``), launches exact.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -1010,6 +1029,72 @@ def flash_phase(gen, failures, records) -> None:
         log(f"  flash_attention {label}: " + json.dumps(rec) + cores)
         if dtype == torch.float32 and case == "granite B2 L512":
             records["flash_attention"] = rec     # the training phase's shape
+    flash_training_shapes(gen, failures)
+
+
+# (B, H, KVH, L, D) of the training phase's flash calls, f32, causal
+FLASH_TRAIN_CASES = {
+    "granite train B2 L512": (2, 32, 8, 512, 64),
+    "zamba2 train B2 L512": (2, 32, 32, 512, 64),
+    "whisper train B2 L448": (2, 16, 16, 448, 64),
+    "qwen3-moe train B2 L512": (2, 32, 4, 512, 128),
+    "llava train B1 L3392": (1, 56, 8, 3392, 128),
+}
+
+
+def flash_training_shapes(gen, failures) -> None:
+    """Flash attention as the training phase calls it (f32, causal): the
+    Function's forward against the plain version and its gradients
+    against autograd of the plain version; then the kernel's time beside
+    its bound, the plain version's, SDPA's and the Function's backward
+    (the plain version recomputed and differentiated), issued eagerly."""
+    from repro_torch.kernels import flash_attention as fa
+
+    dtype = torch.float32
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for case, (B, H, KVH, L, D) in FLASH_TRAIN_CASES.items():
+        base = flash_case(gen, dtype, B, H, KVH, L, L, D)
+        cot = torch.randn(base[0].shape, generator=gen, device="cuda")
+        runs = []
+        for fn in (fa.flash_attention, fa.flash_attention_plain):
+            ts = [t.clone().requires_grad_() for t in base]
+            out = fn(*ts)
+            runs.append((out.detach(), torch.autograd.grad(out, ts, cot)))
+        (out, got), (want, want_g) = runs
+        del runs
+        err, ok = compare(out, want, dtype)
+        g_errs = [compare(a, b, dtype) for a, b in zip(got, want_g)]
+        g_ok = all(o for _, o in g_errs)
+        log(f"  flash_attention {case} f32: forward max_abs_err {err:.3e}; "
+            f"gradients (dq, dk, dv) against autograd of the plain version: "
+            f"max_abs_err {[f'{e:.3e}' for e, _ in g_errs]} "
+            f"{'ok' if ok and g_ok else 'FAIL'}")
+        if not (ok and g_ok):
+            failures.append(("flash_attention", "training", case))
+        del got, want_g, want
+
+        q, k, v = base
+        ts = [t.clone().requires_grad_() for t in base]
+        out = fa.flash_attention(*ts)
+        big = L > 2048                           # ~2.6 GB f32 score tensors
+        reps = dict(iters=3, replays=3) if big else {}
+        nbytes = 4 * D * L * B * (2 * H + 2 * KVH)
+        bound_ms, by = bound(nbytes, 4.0 * B * H * D * L * (L + 1) / 2,
+                             dtype)
+        rec = {"max_abs_err": err,
+               "ms": time_ms(lambda: fa.flash_attention(q, k, v)),
+               "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v),
+                                   **reps),
+               "bound_ms": bound_ms, "bound_by": by,
+               "library_ms": time_ms(lambda: sdpa(
+                   q, k, v, is_causal=True, enable_gqa=True), **reps),
+               "backward_eager_ms": eager_ms(lambda: torch.autograd.grad(
+                   out, ts, cot, retain_graph=True), iters=3 if big else 10)}
+        log(f"  flash_attention {case} f32, the training call: "
+            + json.dumps(rec) + "; backward_eager_ms: the plain version "
+            "recomputed and differentiated, issued from Python (host "
+            "dispatch included)")
+        del out, ts
 
 
 # (B, L, H, P, G, N, chunk) of the SSD scan cases: the JAX kernel tests'
@@ -1114,6 +1199,59 @@ def ssd_phase(gen, failures, records) -> None:
             records["ssd_scan"] = rec            # the serve path's shape
     log("  ssd_scan: no single PyTorch call computes the chunked scan "
         "(library_ms null)")
+    ssd_training_shapes(gen, failures)
+
+
+# the training phase's SSD shapes (f32, batch 2 of 512 tokens): mamba2-130m
+# (24 heads of 64, N 128) and zamba2-1.2b (64 heads of 64, N 64), chunk 64
+SSD_TRAIN_CASES = {"mamba2 train B2 L512": (2, 512, 24, 64, 1, 128, 64),
+                   "zamba2 train B2 L512": (2, 512, 64, 64, 1, 64, 64)}
+
+
+def ssd_training_shapes(gen, failures) -> None:
+    """The SSD scan as training calls it (f32, zero state in, the state
+    out): the Function's forward against the plain version and its
+    gradients (a cotangent on y alone, as the loss gives) against autograd
+    of the plain version; then the kernel's time beside its bound and the
+    plain version's, and the Function's backward (the plain version
+    recomputed and differentiated), issued eagerly."""
+    from repro_torch.kernels import ssd_scan as ss
+
+    dtype = torch.float32
+    for case, (B, L, H, P, G, N, Q) in SSD_TRAIN_CASES.items():
+        x, dt, A, Bm, Cm, _ = ssd_case(gen, dtype, B, L, H, P, G, N)
+        base = (x, dt, A, Bm, Cm)
+        gy = torch.randn(x.shape, generator=gen, device="cuda")
+        runs = []
+        for fn in (ss.ssd_scan, ss.ssd_scan_plain):
+            ts = [t.clone().requires_grad_() for t in base]
+            y, _ = fn(*ts, Q, None, return_state=True)
+            runs.append((y.detach(), torch.autograd.grad(y, ts, gy)))
+        (y, got), (want_y, want) = runs
+        err, ok = compare(y, want_y, dtype, tol=SSD_TOL)
+        g_errs = [compare(a, b, dtype) for a, b in zip(got, want)]
+        g_ok = all(o for _, o in g_errs)
+        log(f"  ssd_scan {case} f32: forward max_abs_err {err:.3e}; "
+            f"gradients (x, dt, A, B, C) against autograd of the plain "
+            f"version: max_abs_err {[f'{e:.3e}' for e, _ in g_errs]} "
+            f"{'ok' if ok and g_ok else 'FAIL'}")
+        if not (ok and g_ok):
+            failures.append(("ssd_scan", "training", case))
+
+        ts = [t.clone().requires_grad_() for t in base]
+        y, _ = ss.ssd_scan(*ts, Q, None, return_state=True)
+        bound_ms, by = ssd_bound(dtype, B, L, H, P, G, N, Q, 4)
+        rec = {"max_abs_err": err,
+               "ms": time_ms(lambda: ss.ssd_scan(*base, Q, None,
+                                                 return_state=True)),
+               "plain_ms": time_ms(lambda: ss.ssd_scan_plain(
+                   *base, Q, None, return_state=True)),
+               "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+               "backward_eager_ms": eager_ms(lambda: torch.autograd.grad(
+                   y, ts, gy, retain_graph=True), iters=10)}
+        log(f"  ssd_scan {case} f32, the training call: " + json.dumps(rec)
+            + "; backward_eager_ms: the plain version recomputed and "
+            "differentiated, issued from Python (host dispatch included)")
 
 
 # ---------------------------------------------------------------------------
@@ -3111,110 +3249,190 @@ def _train_args(arch, steps, *extra):
                                  "--log-every", "1", *extra])
 
 
-def _train(cfg, args, params=None) -> tuple:
+# full width, f32 with AdamW (16 bytes a parameter: weights, gradients
+# and two moments) and remat; the depth is cut only where that does not
+# fit one card beside the activations: qwen3-moe-30b-a3b (0.62 B params
+# a layer, 10 GB; 0.62 B, 10 GB of untied embedding and head) and
+# llava-next-34b (0.56 B a layer, 9 GB; 0.97 B, 15 GB of embedding, head
+# and projector; the plain attention backward over 3392 positions holds
+# ~10 GB of f32 scores) at 4 layers.  dbrx-132b is not trained here: one
+# layer holds 3.26 B params, 52 GB, and its embedding and head 20 GB
+TRAIN_LAYERS = {"qwen3-moe-30b-a3b": 4, "llava-next-34b": 4}
+# (arch, steps, batch, seq): the sequence counts text tokens (llava adds
+# its 2880 patch tokens, whisper its 1500 frames to the encoder)
+TRAIN_RUNS = ((MAMBA, 3, 2, 512), ("zamba2-1.2b", 2, 2, 512),
+              ("whisper-medium", 2, 2, 448), ("qwen3-moe-30b-a3b", 2, 2, 512),
+              ("llava-next-34b", 2, 1, 512))
+
+
+def _train(cfg, args, params=None, extras=None) -> tuple:
     """``launch.train.train`` with the launch counts set to 0 just before
     and read just after; returns (result, counts)."""
     from repro_torch.launch import train as train_cli
     reset_launches()
-    result = train_cli.train(cfg, args, params)
+    result = train_cli.train(cfg, args, params, extras)
     counts = read_launches()
     torch.cuda.synchronize()
     return result, counts
 
 
-def training_phase() -> int:
-    """Full-width training through the flash kernel (f32, remat): 3
-    granite-3-2b steps, one step with the flag off from the same weights
-    and batch, one h2o-danube-1.8b step.  Returns granite's flash
-    launches."""
+def _train_launches(cfg, steps: int) -> dict:
+    """Every kernel's expected launches in ``steps`` remat steps: each
+    mamba layer's SSD scan and, under the flag, each causal attention
+    (a dense or MoE layer, a hybrid site, a decoder layer; an encoder's
+    is bidirectional, plain ``_sdpa``) twice a step, the forward and the
+    recompute; no serving kernel."""
+    from repro_torch.models import hybrid
+
+    want = dict.fromkeys(KERNELS, 0)
+    if cfg.ssm is not None:
+        want["ssd_scan"] = cfg.num_layers * 2 * steps
+    if cfg.use_pallas_attention:
+        sites = (len(hybrid.attn_sites(cfg)) if cfg.arch_type == "hybrid"
+                 else 0 if cfg.arch_type == "ssm" else cfg.num_layers)
+        want["flash_attention"] = sites * 2 * steps
+    return want
+
+
+def train_full(arch: str, steps: int, batch: int, seq: int, *,
+               flag: bool = True) -> tuple:
+    """``arch`` at full width (its depth cut to TRAIN_LAYERS) trained
+    ``steps`` steps in f32 from the seeded weights, the memory freed and
+    the peak reset just before; logs the cut, the leaf count, losses,
+    gradient norms, step times, peak memory and launches, and checks the
+    losses finite and the launches exact.  Returns (result, counts)."""
     from repro_torch.configs import get_arch
 
-    granite = get_arch(GRANITE)
-    args = _train_args(GRANITE, 3, "--full", "--batch", "2", "--seq", "512")
+    full = get_arch(arch)
+    cfg = dataclasses.replace(
+        full, num_layers=TRAIN_LAYERS.get(arch, full.num_layers),
+        use_pallas_attention=flag)
+    args = _train_args(arch, steps, "--full", "--batch", str(batch),
+                       "--seq", str(seq))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res, counts = _train(cfg, args)
+    peak = torch.cuda.max_memory_allocated()
+    want = _train_launches(cfg, steps)
+    log(f"  {arch} f32 B={batch} L={seq}, flag {'on' if flag else 'off'}: "
+        f"{cfg.num_layers} of {full.num_layers} layers (depth cut: "
+        f"{cfg.num_layers != full.num_layers}), {res['n_params'] / 1e9:.3f} "
+        f"B params; losses {res['losses']}, grad norms {res['grad_norms']}, "
+        f"step times (s, host clock, loss read back) {res['step_s']}, peak "
+        f"memory {peak / 2**30:.2f} GiB; launches "
+        f"{ {k: n for k, n in counts.items() if n} } (expected "
+        f"{ {k: n for k, n in want.items() if n} })")
+    check(all(np.isfinite(res["losses"])), f"{arch}: non-finite loss {res}")
+    check(counts == want, f"{arch}: launches {counts} != {want}")
+    return res, counts
+
+
+def _same_step(label, on, off) -> None:
+    """Step 0 with the flag off against the flag on: loss within 1e-4 and
+    gradient norm within 1e-3, relative."""
+    log(f"  {label} flag off, step 0: loss {off['losses'][0]} (flag on "
+        f"{on['losses'][0]}), grad norm {off['grad_norms'][0]} (flag on "
+        f"{on['grad_norms'][0]}), step time {off['step_s'][0]} s")
+    check(abs(off["losses"][0] - on["losses"][0])
+          <= 1e-4 * abs(off["losses"][0]), f"{label} step-0 loss: flag on "
+          f"!= off")
+    check(abs(off["grad_norms"][0] - on["grad_norms"][0])
+          <= 1e-3 * abs(off["grad_norms"][0]), f"{label} grad norm: flag "
+          f"on != off")
+
+
+def training_phase() -> dict:
+    """Full-width training (f32, AdamW, remat), through the flash kernel
+    under ``use_pallas_attention`` and through the SSD scan: 3 granite-3-2b
+    steps, one step with the flag off from the same weights and batch, one
+    h2o-danube-1.8b step; then each family of TRAIN_RUNS, zamba2 once more
+    for one step with the flag off.  Returns the kernels' launches summed
+    over the runs."""
     # the serve phases' engines sit in reference cycles (engine, agent,
     # controller) that hold both models' weights until a collection
     gc.collect()
     torch.cuda.empty_cache()
     log(f"  memory allocated before training: "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    torch.cuda.reset_peak_memory_stats()
-    res, counts = _train(dataclasses.replace(granite,
-                                             use_pallas_attention=True), args)
-    peak = torch.cuda.max_memory_allocated()
-    launches = counts["flash_attention"]
-    want = granite.num_layers * 2 * args.steps
-    log(f"  granite-3-2b f32 B=2 L=512, flag on: losses {res['losses']}, "
-        f"grad norms {res['grad_norms']}, step times (s, host clock, loss "
-        f"read back) {res['step_s']}, peak memory "
-        f"{peak / 2**30:.2f} GiB; flash launches {launches} (expected "
-        f"{granite.num_layers} layers x 2 (forward + remat recompute) x "
-        f"{args.steps} steps = {want})")
-    check(all(np.isfinite(res["losses"])), f"non-finite loss {res}")
-    check(launches == want, f"flash launches {launches} != {want}")
-    check(not any(n for k, n in counts.items() if k != "flash_attention"),
-          f"serving kernels launched in training: {counts}")
+    total = dict.fromkeys(KERNELS, 0)
 
-    off, off_counts = _train(granite,
-                             argparse.Namespace(**{**vars(args), "steps": 1}))
-    log(f"  granite-3-2b flag off, step 0: loss {off['losses'][0]} (flag on "
-        f"{res['losses'][0]}), grad norm {off['grad_norms'][0]} (flag on "
-        f"{res['grad_norms'][0]}), step time {off['step_s'][0]} s")
-    check(off_counts["flash_attention"] == 0, "flag off launched the kernel")
-    check(abs(off["losses"][0] - res["losses"][0])
-          <= 1e-4 * abs(off["losses"][0]), "step-0 loss: flag on != off")
-    check(abs(off["grad_norms"][0] - res["grad_norms"][0])
-          <= 1e-3 * abs(off["grad_norms"][0]), "grad norm: flag on != off")
+    def add(counts):
+        for k, n in counts.items():
+            total[k] += n
 
-    danube = dataclasses.replace(get_arch(DANUBE), use_pallas_attention=True)
-    d_args = _train_args(DANUBE, 1, "--full", "--batch", "2", "--seq", "512")
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    d_res, d_counts = _train(danube, d_args)
-    log(f"  h2o-danube-1.8b f32 B=2 L=512, flag on: loss {d_res['losses']}, "
-        f"step time {d_res['step_s']} s, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, flash "
-        f"launches {d_counts['flash_attention']}")
-    check(np.isfinite(d_res["losses"][0]), "h2o-danube loss not finite")
-    check(d_counts["flash_attention"] == danube.num_layers * 2,
-          f"h2o-danube flash launches {d_counts}")
-    return launches
+    on, counts = train_full(GRANITE, 3, 2, 512)
+    add(counts)
+    off, counts = train_full(GRANITE, 1, 2, 512, flag=False)
+    add(counts)
+    _same_step(GRANITE, on, off)
+    add(train_full(DANUBE, 1, 2, 512)[1])
+    for arch, steps, batch, seq in TRAIN_RUNS:
+        on, counts = train_full(arch, steps, batch, seq)
+        add(counts)
+        if arch == "zamba2-1.2b":
+            off, counts = train_full(arch, 1, batch, seq, flag=False)
+            add(counts)
+            _same_step(arch, on, off)
+    return total
+
+
+# the train-reference phase's families, reduced, every one held to the
+# flash kernel's f32 tolerance, the SSD families too: after 3 steps
+# their params part from the CPU's by at most 1.8e-5 (PERF.md §6)
+TRAIN_REFERENCE = (GRANITE, DANUBE, MAMBA, "zamba2-1.2b", "whisper-medium",
+                   "qwen3-moe-30b-a3b", "llava-next-34b")
+TRAIN_TOL = dict(atol=1e-4, rtol=1e-4)
 
 
 def training_reference_phase() -> None:
-    """Reduced granite and h2o-danube (window 64, seq 128) trained 3 steps
-    on the card (the flash kernel) and on the CPU (its plain version) from
-    the same weights and data: losses and final params within 1e-4."""
+    """Each family of TRAIN_REFERENCE reduced (2 layers, d_model 256;
+    h2o-danube's window 64 under its 128 tokens) trained 3 steps on the
+    card (the flash kernel, the SSD kernel) and on the CPU (their plain
+    versions) from the same weights, tokens and modality extras: losses
+    and final params within TRAIN_TOL, launches exact.  Every family runs
+    before any failure is raised."""
     from repro_torch.configs import get_arch
     from repro_torch.models import build_model
+    from repro_torch.models.model_factory import materialize_batch
     from repro_torch.training.optimizer import tree_leaves
 
     small = dict(num_layers=2, d_model=256, num_heads=8, num_kv_heads=2)
-    for name in (GRANITE, DANUBE):
+    failures = []
+    for name in TRAIN_REFERENCE:
         cfg = dataclasses.replace(get_arch(name).reduced(**small),
                                   use_pallas_attention=True)
         gen = torch.Generator()
         gen.manual_seed(4)
         cpu_params = build_model(cfg).init(gen, torch.float32, "cpu")
         cuda_params = _to_device(cpu_params, "cuda")
+        extras = {k: v for k, v in materialize_batch(
+            cfg, 4, 128, "train", gen, device="cpu").items() if k != "tokens"}
         results = []
         for device, params in (("cuda", cuda_params), ("cpu", cpu_params)):
             args = _train_args(name, 3, "--batch", "4", "--seq", "128",
                                "--device", device)
-            results.append(_train(cfg, args, params))
+            results.append(_train(cfg, args, params,
+                                  _to_device(extras, device)))
         (got, counts), (want, _) = results
         diff = max(float((a.cpu() - b).abs().max()) for a, b in zip(
             tree_leaves(cuda_params), tree_leaves(cpu_params)))
-        ok_params = all(torch.allclose(a.cpu(), b, atol=1e-4, rtol=1e-4)
+        ok_params = all(torch.allclose(a.cpu(), b, **TRAIN_TOL)
                         for a, b in zip(tree_leaves(cuda_params),
                                         tree_leaves(cpu_params)))
-        log(f"  {name} reduced (window {cfg.sliding_window}): cuda losses "
-            f"{got['losses']}, cpu {want['losses']}; max |param diff| "
-            f"{diff:.3e}; flash launches {counts['flash_attention']}")
-        check(counts["flash_attention"] == cfg.num_layers * 2 * 3,
-              f"{name}: flash launches {counts}")
-        check(np.allclose(got["losses"], want["losses"], atol=1e-4,
-                          rtol=1e-4), f"{name}: losses part")
-        check(ok_params, f"{name}: params part by {diff}")
+        ok_losses = np.allclose(got["losses"], want["losses"], **TRAIN_TOL)
+        expect = _train_launches(cfg, 3)
+        log(f"  {name} reduced (window {cfg.sliding_window}, extras "
+            f"{sorted(extras)}): cuda losses {got['losses']}, cpu "
+            f"{want['losses']}; max |param diff| {diff:.3e} (tolerance "
+            f"{TRAIN_TOL}); launches "
+            f"{ {k: n for k, n in counts.items() if n} }")
+        for ok, what in ((counts == expect, f"launches {counts} != {expect}"),
+                         (ok_losses, "losses part"),
+                         (ok_params, f"params part by {diff}")):
+            if not ok:
+                failures.append(f"{name}: {what}")
+    check(not failures, f"card training parts from the CPU: {failures}")
 
 
 def decode_timings(src: Path) -> int:
@@ -3534,9 +3752,10 @@ def main() -> int:
     reference_phase()
     log(f"[reference] ok in {time.monotonic() - t0:.1f} s")
 
-    log("[train] full width, float32, use_pallas_attention")
+    log("[train] full width, float32, use_pallas_attention, every family")
     t0 = time.monotonic()
-    launches["flash_attention"] = training_phase()
+    for k, n in training_phase().items():
+        launches[k] = launches.get(k, 0) + n
     log(f"[train] ok in {time.monotonic() - t0:.1f} s")
 
     log("[train-reference] cuda vs cpu training, reduced models, float32")

@@ -42,8 +42,11 @@ rows, and any d_state whose chunk inputs fit a CTA's shared memory once
 
 On CPU tensors ``ssd_scan`` runs ``ssd_scan_plain``, the same function in
 plain PyTorch; on CUDA tensors it launches the kernel or raises.  It is
-not differentiable (the training path of mamba2 is not ported): a CUDA
-input that requires grad raises.
+differentiable in x, dt, A, Bm, Cm and ``init_state`` (``SSDScan``): the
+backward recomputes ``ssd_scan_plain`` from the saved inputs and
+differentiates that, as flash attention's does.  The reference has no
+backward kernel (its training path runs the jnp ``ssd_chunked``, and its
+Pallas kernel has no VJP), so the port has none either.
 """
 from __future__ import annotations
 
@@ -134,11 +137,6 @@ def _launch(x, dt, A, Bm, Cm, chunk, init_state, return_state) -> Result:
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise TypeError(f"ssd_scan: {k} must be contiguous float32, got "
                             f"{t.dtype}")
-    if any(t.requires_grad for t in (x, dt, A, Bm, Cm, *f32.values())) \
-            and torch.is_grad_enabled():
-        raise RuntimeError("ssd_scan: the kernel has no gradient (training "
-                           "mamba2 is not ported); run it under "
-                           "torch.no_grad()")
     Bsz, L, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     plan = ssd_plan(Bsz, L, H, P, G, N, chunk, x.dtype)
@@ -153,17 +151,53 @@ def _launch(x, dt, A, Bm, Cm, chunk, init_state, return_state) -> Result:
     return (y, final) if return_state else y
 
 
+class SSDScan(torch.autograd.Function):
+    """Forward: the kernel (CUDA tensors) or the plain version (CPU
+    tensors).  Backward: autograd through the plain version, recomputed
+    from the saved inputs alone, so a block recomputed under remat needs
+    nothing of the first forward.  The final state may get no gradient
+    (training discards it): its cotangent is then left out."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, init_state, chunk, return_state):
+        ctx.chunk, ctx.return_state = chunk, return_state
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, init_state)
+        tensors = {"x": x, "dt": dt, "A": A, "Bm": Bm, "Cm": Cm}
+        if init_state is not None:
+            tensors["init_state"] = init_state
+        if on_cpu(tensors):
+            return ssd_scan_plain(x, dt, A, Bm, Cm, chunk, init_state,
+                                  return_state)
+        return _launch(x, dt, A, Bm, Cm, chunk, init_state, return_state)
+
+    @staticmethod
+    def backward(ctx, *grad_outs):
+        saved = ctx.saved_tensors
+        wanted = [i for i, t in enumerate(saved)
+                  if t is not None and ctx.needs_input_grad[i]]
+        inputs = [t if t is None else t.detach().requires_grad_(i in wanted)
+                  for i, t in enumerate(saved)]
+        with torch.enable_grad():
+            outs = ssd_scan_plain(*inputs[:5], ctx.chunk, inputs[5],
+                                  ctx.return_state)
+        outs = outs if ctx.return_state else (outs,)
+        pairs = [(o, g) for o, g in zip(outs, grad_outs) if g is not None]
+        found = torch.autograd.grad([o for o, _ in pairs],
+                                    [inputs[i] for i in wanted],
+                                    [g for _, g in pairs], allow_unused=True)
+        grads = [None] * 8
+        for i, g in zip(wanted, found):
+            grads[i] = g
+        return tuple(grads)
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
              init_state: Optional[torch.Tensor] = None,
              return_state: bool = False) -> Result:
     """The SSD scan (contract in the module docstring): the kernel on CUDA
-    tensors, the plain version on CPU tensors."""
+    tensors, the plain version on CPU tensors; differentiable in every
+    tensor argument."""
     _check_shapes(x, dt, A, Bm, Cm, chunk, init_state)
-    tensors = {"x": x, "dt": dt, "A": A, "Bm": Bm, "Cm": Cm}
-    if init_state is not None:
-        tensors["init_state"] = init_state
-    if on_cpu(tensors):
-        return ssd_scan_plain(x, dt, A, Bm, Cm, chunk, init_state,
-                              return_state)
-    return _launch(x, dt, A, Bm, Cm, chunk, init_state, return_state)
+    return SSDScan.apply(x, dt, A, Bm, Cm, init_state, chunk, return_state)

@@ -1,5 +1,5 @@
-"""Training driver: ``--arch <id>`` end-to-end LM training of a dense
-decoder (PyTorch twin of ``src/repro/launch/train.py``).
+"""Training entry point: ``--arch <id>`` end-to-end LM training of any family
+(PyTorch twin of ``src/repro/launch/train.py``).
 
 Runs reduced configs by default (``--reduced``; ``--full`` for the
 published widths), f32 weights and AdamW state as the reference, on the
@@ -8,10 +8,14 @@ card (``--device cuda``, the default) or on the CPU:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --arch granite-3-2b --steps 3
 
-The attention route is the config's, as in the reference:
+Each step's batch is the synthetic stream's tokens plus the modality
+extras of ``materialize_batch`` (a VLM's patch embeddings, an
+encoder-decoder's frame embeddings), the same at every step, as the
+reference's.  The attention route is the config's, as in the reference:
 ``use_pallas_attention`` sends ``attend_train`` through the CUDA flash
 kernel (its plain version on the CPU).  The CLI has no flag for it; call
-``train(cfg, args)`` with such a config.
+``train(cfg, args)`` with such a config.  mamba2's and the hybrid's scans
+run the CUDA SSD kernel on the card whatever the config says.
 """
 from __future__ import annotations
 
@@ -25,18 +29,21 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
+from repro_torch.models.model_factory import materialize_batch
 from repro_torch.training import (AdamW, SyntheticLMDataset, cosine_schedule,
                                   make_train_step, save_checkpoint)
 from repro_torch.training.optimizer import tree_leaves
 
 
-def train(cfg, args, params=None) -> dict:
+def train(cfg, args, params=None, extras=None) -> dict:
     """Train ``cfg`` as ``args`` (the CLI's flags) say.  Weights come from
     a ``torch.Generator`` of the device seeded with ``args.seed``, unless
-    ``params`` are given; either way they are updated in place.  Returns
-    the reference's ``first_loss`` / ``last_loss`` / ``min_loss`` plus each
+    ``params`` are given; either way they are updated in place.  The
+    modality extras come from one seeded with ``args.seed + 1``, unless
+    ``extras`` (name -> tensor on the device) are given.  Returns the
+    reference's ``first_loss`` / ``last_loss`` / ``min_loss`` plus each
     step's ``losses``, ``grad_norms`` and wall ``step_s`` (host clock, the
-    step's loss read back)."""
+    step's loss read back), and ``n_params``."""
     dev = resolve_device(args.device)
     model = build_model(cfg)
     if params is None:
@@ -52,15 +59,23 @@ def train(cfg, args, params=None) -> dict:
     opt_state = opt.init(params)
     step_fn = make_train_step(model, opt, microbatches=args.microbatches)
 
-    # a dense model's batch is its tokens: the reference's per-step
-    # materialize_batch only adds modality extras (VLM patches, audio
-    # frames), which a dense decoder does not have
+    # the modality extras (VLM patches, audio frames) beside the tokens:
+    # the reference draws them at every step from one unsplit key, so every
+    # step gets the same ones; here they are drawn once, from a generator
+    # of the device seeded with seed + 1
+    if extras is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(args.seed + 1)
+        extras = {k: v for k, v in materialize_batch(
+            cfg, args.batch, args.seq, "train", gen, device=dev).items()
+            if k != "tokens"}
     it = iter(SyntheticLMDataset(cfg.vocab_size, args.seq, args.batch,
                                  seed=args.seed))
     losses, grad_norms, step_s = [], [], []
     t0 = time.monotonic()
     for step in range(args.steps):
-        batch = {"tokens": torch.as_tensor(next(it)["tokens"], device=dev)}
+        batch = {"tokens": torch.as_tensor(next(it)["tokens"], device=dev),
+                 **extras}
         ts = time.monotonic()
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         loss = float(metrics["loss"])
@@ -83,7 +98,8 @@ def train(cfg, args, params=None) -> dict:
           f"(improved {losses[0] - losses[-1]:.4f})")
     return {"first_loss": losses[0], "last_loss": losses[-1],
             "min_loss": min(losses), "losses": losses,
-            "grad_norms": grad_norms, "step_s": step_s}
+            "grad_norms": grad_norms, "step_s": step_s,
+            "n_params": n_params}
 
 
 def parse_args(argv: Optional[list] = None) -> argparse.Namespace:

@@ -1,5 +1,5 @@
-"""Whisper-style encoder-decoder, whisper-medium (PyTorch twin of the
-serving half of ``src/repro/models/encdec.py``).  [arXiv:2212.04356]
+"""Whisper-style encoder-decoder, whisper-medium (PyTorch twin of
+``src/repro/models/encdec.py``).  [arXiv:2212.04356]
 
 The conv/mel frontend is a stub, as in the reference: callers give
 precomputed frame embeddings (B, num_frames, d_model).  The encoder's
@@ -20,8 +20,11 @@ num_frames, D), all updated in place.
 
 The encoder and the cross-attention run plain ``_sdpa``, as the reference
 runs jnp outside any kernel; the decoder's self-attention decode runs the
-dense decode kernel (its int8 twin for ``cfg.kv_quant``).  Training is not
-ported.
+dense decode kernel (its int8 twin for ``cfg.kv_quant``), and in training
+its ``attend_train`` runs the flash kernel under
+``cfg.use_pallas_attention``.  The training loss encodes the frames once,
+outside any remat boundary, and makes each decoder layer, its cross K/V
+included, a remat boundary, as the reference's.
 """
 from __future__ import annotations
 
@@ -90,14 +93,6 @@ def init_encdec_lm(gen: torch.Generator, cfg, dtype: torch.dtype,
     }
 
 
-_NO_TRAINING = ("training the encoder-decoder (encdec.loss_fn) is not "
-                "ported: it comes with a later training slice")
-
-
-def loss_fn(params, cfg, batch, *, remat: bool = True):
-    raise NotImplementedError(_NO_TRAINING)
-
-
 # ---------------------------------------------------------------------------
 # encoder and cross attention
 # ---------------------------------------------------------------------------
@@ -161,22 +156,54 @@ def init_cache(cfg, batch: int, max_seq: int, dtype: torch.dtype,
             "cross_v": torch.zeros(cross, dtype=dtype, device=device)}
 
 
+def _dec_block(cfg, x: torch.Tensor, bp, self_attend,
+               ckv: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """One decoder block over x; ``self_attend(attn_params, h)`` is its
+    self-attention, ``ckv`` its cross K/V."""
+    h = _ln(cfg, x, bp, "self_norm")
+    x = x + self_attend(bp["self_attn"], h)
+    h = _ln(cfg, x, bp, "cross_norm")
+    x = x + cross_attend(bp["cross_attn"], cfg, h, ckv)
+    h = _ln(cfg, x, bp, "mlp_norm")
+    return x + layers.gelu_mlp(bp["mlp"], h)
+
+
 def _decode_layers(params, cfg, x: torch.Tensor, cache, self_attend,
                    cross) -> torch.Tensor:
     """Every decoder block over x.  ``self_attend(attn_params, h,
     layer_cache)`` is the self-attention over the layer's cache views;
     ``cross(i, cross_params)`` gives layer i's cross K/V."""
     for i, bp in enumerate(params["dec_blocks"]):
-        h = _ln(cfg, x, bp, "self_norm")
-        x = x + self_attend(bp["self_attn"], h,
-                            {name: leaf[i]
-                             for name, leaf in cache["self"].items()})
-        h = _ln(cfg, x, bp, "cross_norm")
-        x = x + cross_attend(bp["cross_attn"], cfg, h,
-                             cross(i, bp["cross_attn"]))
-        h = _ln(cfg, x, bp, "mlp_norm")
-        x = x + layers.gelu_mlp(bp["mlp"], h)
+        layer = {name: leaf[i] for name, leaf in cache["self"].items()}
+        x = _dec_block(cfg, x, bp,
+                       lambda ap, h: self_attend(ap, h, layer),
+                       cross(i, bp["cross_attn"]))
     return _ln(cfg, x, params, "final")
+
+
+def _dec_block_full(cfg, x: torch.Tensor, positions: torch.Tensor, bp,
+                    enc_out: torch.Tensor) -> torch.Tensor:
+    """One decoder block over a whole sequence (training), its cross K/V
+    computed from ``enc_out`` inside it."""
+    return _dec_block(cfg, x, bp,
+                      lambda ap, h: attention.attend_train(ap, cfg, h,
+                                                           positions),
+                      cross_kv(bp["cross_attn"], cfg, enc_out))
+
+
+def loss_fn(params, cfg, batch, *, remat: bool = True):
+    """Next-token cross-entropy of the decoder over the encoded frames.
+    batch: {"tokens": (B, S+1) integer, "frame_embeds": (B, F, d)}.
+    Returns (loss, {"ce", "aux"}), 0-dim f32 tensors."""
+    tokens = batch["tokens"].long()
+    enc_out = encode(params, cfg, batch["frame_embeds"])
+    x = params["embed"][tokens[:, :-1]]
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    for bp in params["dec_blocks"]:
+        x = layers.remat_call(remat, _dec_block_full, cfg, x, positions, bp,
+                              enc_out)
+    return layers.tied_lm_loss(params, cfg, _ln(cfg, x, params, "final"),
+                               tokens[:, 1:])
 
 
 def _logits(params, cfg, x: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Zamba2-style hybrid LM, zamba2-1.2b (PyTorch twin of the serving half of
+"""Zamba2-style hybrid LM, zamba2-1.2b (PyTorch twin of
 ``src/repro/models/hybrid.py``): a Mamba2 backbone plus ONE weight-tied
 attention block applied after every ``hybrid_attn_every``-th layer.
 [arXiv:2411.15242]
@@ -16,7 +16,12 @@ The prefill runs every mamba layer's full form from a zero state (its scan
 is the CUDA SSD kernel on a CUDA tensor) and each site's ``attend_prefill``
 (plain ``_sdpa``, as the reference's jnp path); the decode step runs the
 recurrent mamba step and each site's ``attend_decode``, the dense decode
-kernel (its int8 twin for ``cfg.kv_quant``).  Training is not ported.
+kernel (its int8 twin for ``cfg.kv_quant``).  Training runs every mamba
+layer's full form from a zero state (the SSD kernel on a CUDA tensor,
+differentiated through its plain version) and each site's
+``attend_train`` (the flash kernel under ``cfg.use_pallas_attention``),
+each mamba layer and each application of the shared block a remat
+boundary; the shared block's gradient sums over its sites.
 """
 from __future__ import annotations
 
@@ -50,18 +55,30 @@ def init_hybrid_lm(gen: torch.Generator, cfg, dtype: torch.dtype,
     return params
 
 
-_NO_TRAINING = ("training the hybrid (hybrid.loss_fn / forward_train) is "
-                "not ported: it comes with the SSM training slice, which "
-                "also needs the SSD scan's gradient")
-
-
 def forward_train(params, cfg, x: torch.Tensor, positions: torch.Tensor, *,
-                  remat: bool = True):
-    raise NotImplementedError(_NO_TRAINING)
+                  remat: bool = True) -> torch.Tensor:
+    """x: (B, L, d) embeddings -> the final-normed hidden states (B, L, d).
+
+    Each mamba layer, and each application of the shared block, is a
+    remat boundary, as the reference's: the SSD's intra-chunk decay
+    tensors (B, nc, Q, Q, H) would otherwise persist across 38 layers."""
+    sites = set(attn_sites(cfg))
+    for i, bp in enumerate(params["blocks"]):
+        x = layers.remat_call(remat, ssm_lm.block_train, cfg, x, bp)
+        if i in sites:
+            x = layers.remat_call(remat, _shared_attn_full, params, cfg, x,
+                                  positions)
+    return layers.rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
 
 
 def loss_fn(params, cfg, batch, *, remat: bool = True):
-    raise NotImplementedError(_NO_TRAINING)
+    """Next-token cross-entropy.  batch: {"tokens": (B, S+1) integer}.
+    Returns (loss, {"ce", "aux"}), 0-dim f32 tensors."""
+    tokens = batch["tokens"].long()
+    x = params["embed"][tokens[:, :-1]]
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    hidden = forward_train(params, cfg, x, positions, remat=remat)
+    return layers.tied_lm_loss(params, cfg, hidden, tokens[:, 1:])
 
 
 def init_state(cfg, batch: int, max_seq: int, dtype: torch.dtype,
@@ -85,6 +102,13 @@ def _shared_block(params, cfg, x: torch.Tensor, attend) -> torch.Tensor:
     x = x + attend(sp["attn"], h)
     h = layers.rms_norm(x, sp["mlp_norm"], cfg.rms_norm_eps)
     return x + layers.swiglu_mlp(sp["mlp"], h)
+
+
+def _shared_attn_full(params, cfg, x: torch.Tensor,
+                      positions: torch.Tensor) -> torch.Tensor:
+    """The shared block over a whole sequence (training)."""
+    return _shared_block(params, cfg, x, lambda ap, h: attention.attend_train(
+        ap, cfg, h, positions))
 
 
 def _run(params, cfg, x: torch.Tensor, state, mamba, attend) -> torch.Tensor:

@@ -1,7 +1,9 @@
 """Shared building blocks: initializers, norms (RMS and layer norm), RoPE,
 the SwiGLU and GELU MLPs, sinusoidal positions, embedding, the
 vocab-padding mask and the attention masks (PyTorch twins of
-``src/repro/models/layers.py``).
+``src/repro/models/layers.py``); and the two pieces every model's
+training loss shares, the remat boundary and the next-token
+cross-entropy.
 
 Model code is functional: ``init_*`` builds nested dicts of tensors and the
 forward functions consume them.
@@ -12,6 +14,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 # ---------------------------------------------------------------------------
@@ -137,6 +140,36 @@ def unembed(params, cfg, x: torch.Tensor) -> torch.Tensor:
     projection is the embedding's transpose."""
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return mask_padded_logits(x @ w, cfg.vocab_size)
+
+
+def remat_call(remat: bool, fn, *args):
+    """``fn(*args)``; with ``remat`` under ``torch.utils.checkpoint``, which
+    keeps only the inputs and reruns ``fn`` in the backward pass (the
+    reference's ``jax.checkpoint``)."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def next_token_ce(logits: torch.Tensor, targets: torch.Tensor
+                  ) -> torch.Tensor:
+    """Mean cross-entropy of f32 ``logits`` (B, L, V) against integer
+    ``targets`` (B, L), a 0-dim tensor."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    return torch.mean(logz - gold)
+
+
+def tied_lm_loss(params, cfg, hidden: torch.Tensor, targets: torch.Tensor):
+    """The loss of an LM whose output projection is its embedding's
+    transpose and which has no aux loss (mamba2, the hybrid, the
+    encoder-decoder): (ce, {"ce", "aux": 0}), the logits f32 and masked to
+    the real vocab."""
+    logits = mask_padded_logits((hidden @ params["embed"].T).float(),
+                                cfg.vocab_size)
+    ce = next_token_ce(logits, targets)
+    return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
+                                             device=ce.device)}
 
 
 def causal_mask(q_len: int, kv_len: int, q_offset: int,

@@ -2,7 +2,8 @@
 for every ``arch_type``: ``"dense"``, ``"moe"`` and ``"vlm"`` (the
 transformer: the training loss and every serving path), ``"ssm"``
 (mamba2), ``"hybrid"`` (zamba2) and ``"audio"`` (the whisper
-encoder-decoder), the last three with single-shot prefill and decode).
+encoder-decoder), the last three with the training loss, single-shot
+prefill and decode).
 
 ``build_model(cfg)`` returns a ``Model`` with:
   * ``init(gen, dtype, device)``  -> params (random, from ``gen``)
@@ -23,9 +24,9 @@ encoder-decoder), the last three with single-shot prefill and decode).
 The last four are None for the SSM and the hybrid (their state carry
 needs single-shot prefill; they have no pageable KV) and for the
 encoder-decoder (its cross-attention), as in the reference.  The loss of
-those three raises ``NotImplementedError``: their training is not ported.
-Every serving path returns ``(logits, cache)`` and updates the cache in
-place;
+a VLM takes ``batch["patch_embeds"]`` and that of an encoder-decoder
+``batch["frame_embeds"]`` beside the tokens.  Every serving path
+returns ``(logits, cache)`` and updates the cache in place;
 ``cfg.kv_quant`` makes every KV cache int8 with per-row scales.
 ``batch_struct`` / ``materialize_batch`` give one step's data inputs,
 the modality stubs included, as shapes or as random tensors.

@@ -7,11 +7,11 @@ Discretized recurrence, per head h with scalar decay A_h < 0:
     h_t = a_t * h_{t-1} + dt_t * B_t (x) x_t  (state: (N, P))
     y_t = C_t . h_t + D * x_t
 
-Prefill uses the chunked SSD algorithm, ``ssd_chunked``: on CUDA tensors
-the hand-written CUDA kernel of ``kernels/ssd_scan.py``, on CPU tensors
-its plain version (the reference's jnp ``ssd_chunked`` has the Pallas
-kernel's contract, plus the initial and final state the serving path
-carries).  Decode uses the O(1) recurrent step ``ssd_step`` in plain
+Prefill and training use the chunked SSD algorithm, ``ssd_chunked``: on
+CUDA tensors the hand-written CUDA kernel of ``kernels/ssd_scan.py``, on
+CPU tensors its plain version (the reference's jnp ``ssd_chunked`` has
+the Pallas kernel's contract, plus the initial and final state the
+serving path carries); its gradient is the plain version's.  Decode uses the O(1) recurrent step ``ssd_step`` in plain
 PyTorch, as the reference does in jnp.
 
 Layout: x (B, L, H, P); B, C (B, L, G, N) with H/G heads per group;

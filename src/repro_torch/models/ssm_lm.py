@@ -1,13 +1,15 @@
 """Attention-free Mamba2 LM, mamba2-130m (PyTorch twin of
-``src/repro/models/ssm_lm.py``): single-shot prefill and the recurrent
-decode step.  [arXiv:2405.21060]
+``src/repro/models/ssm_lm.py``): the training loss, single-shot prefill
+and the recurrent decode step.  [arXiv:2405.21060]
 
 Params are ``{"embed", "final_norm", "blocks": [{"norm", "mamba": {...}},
 ...]}``, one dict per layer (``models/convert.py`` unstacks the
 reference's).  The state stacks each layer's leaves on a leading
 ``layers`` axis, ``{"conv": (layers, B, W-1, C), "ssm": (layers, B, H, N,
-P) float32}``, and both serving paths update it in place.  The loss is not
-ported yet.
+P) float32}``, and both serving paths update it in place.  Training runs
+each layer's full form from a zero state (``forward_train``), its scan
+the SSD kernel on a CUDA tensor, differentiated through the kernel's
+plain version (``kernels/ssd_scan.py::SSDScan``).
 """
 from __future__ import annotations
 
@@ -34,17 +36,32 @@ def init_ssm_lm(gen: torch.Generator, cfg, dtype: torch.dtype,
     }
 
 
-_NO_TRAINING = ("training mamba2 (ssm_lm.loss_fn / forward_train) is not "
-                "ported: it comes with the SSM training slice, which also "
-                "needs the SSD scan's gradient")
+def block_train(cfg, x: torch.Tensor, bp) -> torch.Tensor:
+    """One residual mamba layer over a whole sequence, from a zero state
+    (the state it ends in is dropped)."""
+    h = layers.rms_norm(x, bp["norm"], cfg.rms_norm_eps)
+    out, _ = ssm_lib.mamba_block_full(bp["mamba"], cfg, h)
+    return x + out
 
 
-def forward_train(params, cfg, x: torch.Tensor, *, remat: bool = True):
-    raise NotImplementedError(_NO_TRAINING)
+def forward_train(params, cfg, x: torch.Tensor, *,
+                  remat: bool = True) -> torch.Tensor:
+    """x: (B, L, d) embeddings -> the final-normed hidden states (B, L, d).
+    A Python loop over the per-layer dicts takes the place of the
+    reference's ``lax.scan``; with ``remat`` each layer is a remat
+    boundary."""
+    for bp in params["blocks"]:
+        x = layers.remat_call(remat, block_train, cfg, x, bp)
+    return layers.rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
 
 
 def loss_fn(params, cfg, batch, *, remat: bool = True):
-    raise NotImplementedError(_NO_TRAINING)
+    """Next-token cross-entropy.  batch: {"tokens": (B, S+1) integer}.
+    Returns (loss, {"ce", "aux"}), 0-dim f32 tensors."""
+    tokens = batch["tokens"].long()
+    hidden = forward_train(params, cfg, params["embed"][tokens[:, :-1]],
+                           remat=remat)
+    return layers.tied_lm_loss(params, cfg, hidden, tokens[:, 1:])
 
 
 def init_state(cfg, batch: int, max_seq: int, dtype: torch.dtype,

@@ -22,7 +22,6 @@ from __future__ import annotations
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention, layers, moe as moe_lib
 
@@ -119,11 +118,7 @@ def forward_train(params, cfg, x_embeds: torch.Tensor,
     x = x_embeds
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for bp in params["blocks"]:
-        if remat:
-            x, a = checkpoint(_block_train, cfg, x, positions, bp,
-                              use_reentrant=False)
-        else:
-            x, a = _block_train(cfg, x, positions, bp)
+        x, a = layers.remat_call(remat, _block_train, cfg, x, positions, bp)
         aux = aux + a
     return layers.rms_norm(x, params["final_norm"], cfg.rms_norm_eps), aux
 
@@ -157,10 +152,8 @@ def loss_fn(params, cfg, batch: Dict[str, torch.Tensor], *,
     positions = torch.arange(L, device=x.device)[None, :]
     hidden, aux = forward_train(params, cfg, x, positions, remat=remat)
     hidden = hidden[:, n_prefix:]
-    logits = layers.unembed(params, cfg, hidden).float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
-    ce = torch.mean(logz - gold)
+    ce = layers.next_token_ce(layers.unembed(params, cfg, hidden).float(),
+                              targets)
     aux_w = cfg.moe.aux_loss_weight if cfg.moe is not None else 0.0
     total = ce + aux_w * aux / max(cfg.num_layers, 1)
     return total, {"ce": ce, "aux": aux}

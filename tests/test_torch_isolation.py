@@ -108,3 +108,10 @@ def test_engine_without_cuda_raises_instead_of_using_the_cpu(monkeypatch):
         ContinuousBatchingEngine(model, params, EngineConfig())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_registry(["granite-3-2b"])
+
+
+def test_train_tiny_without_cuda_raises(monkeypatch):
+    from repro_torch.launch import train_tiny
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_tiny.main(["--small", "--steps", "1"])

@@ -1,6 +1,8 @@
 """The port's CUDA kernels (paged decode, paged prefill, dense decode, each
-in float and int8-KV variants, flash attention with its autograd Function,
-and the SSD scan) against their plain PyTorch versions, on the card.
+in float and int8-KV variants, and flash attention and the SSD scan, each
+with its autograd Function, whose gradients are held against autograd of
+the plain version, also at the training phase's shapes) against their
+plain PyTorch versions, on the card.
 
 Needs an NVIDIA GPU with nvcc (sm_90a); skips elsewhere.  Imports no JAX,
 so it runs where JAX is not installed:
@@ -467,6 +469,32 @@ def test_flash_function_gradients_match_plain_autograd(dev, D, window):
         torch.testing.assert_close(got, want, **TOL[torch.float32])
 
 
+@pytest.mark.parametrize("B,H,KVH,L,D", [
+    (1, 56, 8, 512, 128),     # llava-next-34b's group 7 at D 128
+    (2, 32, 4, 512, 128),     # qwen3-moe-30b-a3b's group 8
+    (2, 16, 16, 448, 64),     # whisper-medium's decoder, 448 tokens
+    (2, 32, 32, 512, 64)])    # zamba2-1.2b's shared block
+def test_flash_function_at_the_training_shapes(dev, B, H, KVH, L, D):
+    """The training phase's attention shapes in f32: the forward against
+    the plain version and the gradients against autograd of it."""
+    rng = np.random.default_rng(16)
+    shapes = ((B, H, L, D), (B, KVH, L, D), (B, KVH, L, D))
+    base = [torch.tensor(rng.standard_normal(s), dtype=torch.float32,
+                         device=dev) for s in shapes]
+    cot = torch.tensor(rng.standard_normal(shapes[0]), dtype=torch.float32,
+                       device=dev)
+    outs, grads = [], []
+    for fn in (fa.flash_attention, fa.flash_attention_plain):
+        ts = [t.clone().requires_grad_() for t in base]
+        out = fn(*ts, causal=True)
+        (out * cot).sum().backward()
+        outs.append(out.detach())
+        grads.append([t.grad for t in ts])
+    torch.testing.assert_close(*outs, **TOL[torch.float32])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, **TOL[torch.float32])
+
+
 def test_flash_wrapper_refuses_what_the_kernel_does_not_take(dev):
     q = torch.randn(1, 4, 16, 64, device=dev)
     k = torch.randn(1, 2, 16, 64, device=dev)
@@ -597,10 +625,56 @@ def test_ssd_scan_wrapper_refuses_what_the_kernel_does_not_take(dev):
         ss.ssd_scan(x, dt, A, wide, wide, 128)
     with pytest.raises(ValueError):
         ss.ssd_scan(x, dt, A.cpu(), Bm, Cm, 16)
-    with pytest.raises(RuntimeError, match="no gradient"):
-        ss.ssd_scan(x.requires_grad_(), dt, A, Bm, Cm, 16)
+    # an input that requires grad runs the kernel too (training)
+    before = ss.launches
+    ss.ssd_scan(x.requires_grad_(), dt, A, Bm, Cm, 16)
     with torch.no_grad():
         ss.ssd_scan(x, dt, A, Bm, Cm, 16)
+    assert ss.launches == before + 2
+
+
+# the training phase's SSD shapes, (B, L, H, P, G, N, chunk): mamba2-130m
+# and zamba2-1.2b at batch 2 of 512 tokens, and a ragged one
+SSD_TRAIN_SHAPES = {"mamba2 B2 L512": (2, 512, 24, 64, 1, 128, 64),
+                    "zamba2 B2 L512": (2, 512, 64, 64, 1, 64, 64),
+                    "groups (2,96,8,24,2,40,32)": (2, 96, 8, 24, 2, 40, 32)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("shape", SSD_TRAIN_SHAPES.values(),
+                         ids=SSD_TRAIN_SHAPES.keys())
+def test_ssd_scan_function_gradients_match_plain_autograd(dev, dtype,
+                                                          with_state, shape):
+    """Forward through the kernel, backward through the plain version: the
+    forward within the kernel's tolerance of the plain version's, every
+    input's gradient (cotangents on y and the final state) within the
+    tolerance of autograd of the plain version alone."""
+    *dims, chunk = shape
+    base = list(_ssd_inputs(np.random.default_rng(14), *dims, dtype, dev))
+    if not with_state:
+        base[5] = None
+    rng = np.random.default_rng(15)
+    B, L, H, P, G, N = dims
+    gy = torch.tensor(rng.standard_normal((B, L, H, P)), dtype=dtype,
+                      device=dev)
+    gh = torch.tensor(rng.standard_normal((B, H, N, P)),
+                      dtype=torch.float32, device=dev)
+    results = []
+    for fn in (ss.ssd_scan, ss.ssd_scan_plain):
+        ts = [t if t is None else t.clone().requires_grad_() for t in base]
+        before = ss.launches
+        y, h = fn(*ts[:5], chunk, ts[5], return_state=True)
+        assert ss.launches == before + (fn is ss.ssd_scan)
+        ((y.float() * gy.float()).sum() + (h * gh).sum()).backward()
+        results.append((y, h, [t.grad for t in ts if t is not None]))
+    torch.cuda.synchronize()
+    (y, h, got), (want_y, want_h, want) = results
+    torch.testing.assert_close(y.float(), want_y.float(), **SSD_TOL[dtype])
+    torch.testing.assert_close(h, want_h, **SSD_TOL[torch.float32])
+    for name, g, w in zip("x dt A Bm Cm init_state".split(), got, want):
+        torch.testing.assert_close(g.float(), w.float(), **TOL[dtype],
+                                   msg=name)
 
 
 # ---------------------------------------------------------------------------

@@ -25,7 +25,6 @@ from repro.models import ssm as jax_ssm
 from repro_torch.configs import get_arch
 from repro_torch.models import build_model
 from repro_torch.models import ssm as port_ssm
-from repro_torch.models import ssm_lm as port_ssm_lm
 from repro_torch.models.convert import from_jax_params, to_jax_layout
 
 torch.set_num_threads(2)
@@ -155,11 +154,3 @@ def test_prefill_then_decode_match_jax(models, L):
         _close(got, want)
         lengths += 1
     assert got.shape == (2, tcfg.padded_vocab)
-
-
-def test_training_is_not_ported(models):
-    *_, tcfg, tmodel, tparams = models
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tmodel.loss(tparams, {"tokens": torch.zeros((1, 9), dtype=torch.int32)})
-    with pytest.raises(NotImplementedError, match="training slice"):
-        port_ssm_lm.forward_train(tparams, tcfg, torch.zeros((1, 8, 128)))
