@@ -55,15 +55,19 @@ Phases, in order; any failure exits non-zero before the result lines:
      heads on 8, D 64, L 512), h2o-danube's D 80 with windows 8, 17 and
      64, the JAX tests' ragged cases (Lq 33 on Lkv 65, L 100) and L 2048;
      its autograd Function's gradients against autograd of the plain
-     version (f32, 1e-4); and its time at the training phase's shape (f32)
+     version (f32, 1e-4; the backward recomputes the plain version and
+     never reads the kernel's output, so this holds the Function's
+     wiring, not the kernel, whose gradient ``[train-reference]``'s
+     card-against-CPU parameters hold); and its time at the training phase's shape (f32)
      beside its bound (the visible half of the causal square; f32 at the
      3xTF32 rate, with the CUDA-core rate's bound beside it) and
      ``scaled_dot_product_attention``, and, for reference, in bf16, with
      a 64-token window (SDPA with a boolean mask) and at L 2048; then
      at each training call of the ``[train]`` phase (f32: granite,
      zamba2's sites, whisper's decoder, qwen3-moe, llava over 3392
-     positions) the Function's forward and gradients against the plain
-     version's, and its kernel, plain version, SDPA and backward (eager)
+     positions) the Function's forward against the plain version's and
+     its gradients against autograd of it (the wiring, as above), and its
+     kernel, plain version, SDPA and backward (eager)
      times beside its bound.  Then
      the SSD scan in f32 and bf16 (dt, A and the states f32), with and
      without an initial state, its final state returned, on the JAX
@@ -77,8 +81,10 @@ Phases, in order; any failure exits non-zero before the result lines:
      version (no single PyTorch call computes the scan: ``library_ms``
      null), and for reference at L 512, L 2048 and B 4 L 512; then at
      the training phase's calls (f32, B 2, L 512: mamba2's 24 heads of 64
-     at N 128, zamba2's 64 at N 64) the autograd Function's forward and
-     gradients against autograd of the plain version, and its kernel,
+     at N 128, zamba2's 64 at N 64) the autograd Function's forward
+     against the plain version and its gradients against autograd of it
+     (the Function's wiring, as flash's: cotangents, the final state
+     without one, which inputs get a gradient), and its kernel,
      plain version and backward (eager) times beside its bound;
   4. serve phases, one per path, each with the launch counts set to 0 just
      before and read just after, through ``calibrate_registry`` /
@@ -957,7 +963,8 @@ def flash_case(gen, dtype, B, H, KVH, Lq, Lkv, D):
 def flash_phase(gen, failures, records) -> None:
     """Flash attention against its plain version over FLASH_CASES in f32
     and bf16, the Function's gradients against autograd of the plain
-    version, then the timed record at the training phase's shape (f32,
+    version (its wiring: the backward never reads the kernel's output),
+    then the timed record at the training phase's shape (f32,
     causal), and for reference the same shape in bf16, a 64-token window
     at D 80 and L 2048."""
     from repro_torch.kernels import flash_attention as fa
@@ -1045,7 +1052,9 @@ FLASH_TRAIN_CASES = {
 def flash_training_shapes(gen, failures) -> None:
     """Flash attention as the training phase calls it (f32, causal): the
     Function's forward against the plain version and its gradients
-    against autograd of the plain version; then the kernel's time beside
+    against autograd of the plain version (the Function's wiring, not the
+    kernel: the backward recomputes the plain version); then the kernel's
+    time beside
     its bound, the plain version's, SDPA's and the Function's backward
     (the plain version recomputed and differentiated), issued eagerly."""
     from repro_torch.kernels import flash_attention as fa
@@ -1128,14 +1137,16 @@ def ssd_case(gen, dtype, B, L, H, P, G, N):
             randn((B, L, G, N)), randn((B, H, N, P), f32))
 
 
-def ssd_bound(dtype, B, L, H, P, G, N, Q, esize) -> tuple:
+def ssd_bound(dtype, B, L, H, P, G, N, Q, esize, *, state_in) -> tuple:
     """Each input read once and each output written once (x, y, B, C in
-    ``esize`` bytes; dt, A and the two states f32), and the products'
-    flops: per chunk C.B^T over the visible half (j <= i), once per group,
-    and per head the masked form times x, C times the state and the state
-    update."""
+    ``esize`` bytes; dt, A and the states f32: the final state written,
+    the initial one read only when ``state_in``, since a zero state is
+    never loaded), and the products' flops: per chunk C.B^T over the
+    visible half (j <= i), once per group, and per head the masked form
+    times x, C times the state and the state update."""
+    states = 2 if state_in else 1
     nbytes = (2 * B * L * H * P * esize + 2 * B * L * G * N * esize
-              + 4 * (B * L * H + H) + 2 * 4 * B * H * N * P)
+              + 4 * (B * L * H + H) + states * 4 * B * H * N * P)
     half = Q * (Q + 1) / 2
     flops = B * (L // Q) * (G * 2 * half * N
                             + H * (2 * half * P + 4 * Q * N * P))
@@ -1185,7 +1196,8 @@ def ssd_phase(gen, failures, records) -> None:
         _, h_ok = compare(h, want_h, torch.float32, tol=SSD_TOL)
         if not (ok and h_ok):
             failures.append(("ssd_scan", str(dtype), "timed " + case))
-        bound_ms, by = ssd_bound(dtype, B, L, H, P, G, N, Q, esize)
+        bound_ms, by = ssd_bound(dtype, B, L, H, P, G, N, Q, esize,
+                                 state_in=True)
         rec = {"max_abs_err": err,
                "ms": time_ms(lambda: ss.ssd_scan(*args, return_state=True)),
                "plain_ms": time_ms(lambda: ss.ssd_scan_plain(
@@ -1212,7 +1224,8 @@ def ssd_training_shapes(gen, failures) -> None:
     """The SSD scan as training calls it (f32, zero state in, the state
     out): the Function's forward against the plain version and its
     gradients (a cotangent on y alone, as the loss gives) against autograd
-    of the plain version; then the kernel's time beside its bound and the
+    of the plain version, which checks the Function's wiring and not the
+    kernel, since the backward recomputes the plain version; then the kernel's time beside its bound and the
     plain version's, and the Function's backward (the plain version
     recomputed and differentiated), issued eagerly."""
     from repro_torch.kernels import ssd_scan as ss
@@ -1240,7 +1253,8 @@ def ssd_training_shapes(gen, failures) -> None:
 
         ts = [t.clone().requires_grad_() for t in base]
         y, _ = ss.ssd_scan(*ts, Q, None, return_state=True)
-        bound_ms, by = ssd_bound(dtype, B, L, H, P, G, N, Q, 4)
+        bound_ms, by = ssd_bound(dtype, B, L, H, P, G, N, Q, 4,
+                                 state_in=False)
         rec = {"max_abs_err": err,
                "ms": time_ms(lambda: ss.ssd_scan(*base, Q, None,
                                                  return_state=True)),
@@ -2692,7 +2706,7 @@ def hybrid_encdec_kernels(tag, cfg, lengths, S1, ssd_lengths=()) -> None:
                 failures.append(("ssd_scan", str(dtype), case))
             if L in (min(ssd_lengths), max(ssd_lengths)):
                 b, by = ssd_bound(dtype, 1, L, H_s, P, s.n_groups, N, Q,
-                                  esize)
+                                  esize, state_in=False)
                 rec = {"max_abs_err": err,
                        "ms": time_ms(lambda: ss.ssd_scan(
                            *args, return_state=True)),

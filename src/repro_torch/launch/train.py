@@ -40,7 +40,10 @@ def train(cfg, args, params=None, extras=None) -> dict:
     a ``torch.Generator`` of the device seeded with ``args.seed``, unless
     ``params`` are given; either way they are updated in place.  The
     modality extras come from one seeded with ``args.seed + 1``, unless
-    ``extras`` (name -> tensor on the device) are given.  Returns the
+    ``extras`` (name -> tensor on the device) are given: generators of two
+    devices draw different numbers, so a run on the card is held against
+    one on the CPU by giving both the same extras, and that is what the
+    argument is for.  Returns the
     reference's ``first_loss`` / ``last_loss`` / ``min_loss`` plus each
     step's ``losses``, ``grad_norms`` and wall ``step_s`` (host clock, the
     step's loss read back), and ``n_params``."""

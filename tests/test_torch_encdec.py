@@ -286,6 +286,10 @@ def test_batch_struct_carries_the_frames(kind):
 
 
 def test_prefill_needs_frames_and_training_is_not_ported(pairs):
+    """A prefill without frame embeddings raises, naming the model, and
+    the full config builds.  The name is historical: training is ported
+    now, and its half of the test went with the raise it checked
+    (tests/test_torch_ssm_training.py trains the encoder-decoder)."""
     *_, tcfg, tmodel, tparams = pairs()
     cache = tmodel.init_cache(1, 8, torch.float32, "cpu")
     with pytest.raises(ValueError, match=tcfg.name):

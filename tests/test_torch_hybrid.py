@@ -214,6 +214,10 @@ def test_decode_matches_prefill(pairs):
 
 
 def test_full_config_builds_and_training_is_not_ported():
+    """The full config builds without the paged paths.  The name is
+    historical: training is ported now, and its half of the test went with
+    the raise it checked (tests/test_torch_ssm_training.py trains the
+    hybrid)."""
     cfg = get_arch(ARCH)
     assert (cfg.arch_type, cfg.num_layers, cfg.hybrid_attn_every) \
         == ("hybrid", 38, 6)

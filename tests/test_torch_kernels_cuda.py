@@ -2,7 +2,10 @@
 in float and int8-KV variants, and flash attention and the SSD scan, each
 with its autograd Function, whose gradients are held against autograd of
 the plain version, also at the training phase's shapes) against their
-plain PyTorch versions, on the card.
+plain PyTorch versions, on the card.  Each Function's backward recomputes
+the plain version and never reads the kernel's output, so its gradient
+cases hold the Function's wiring (cotangents, which inputs get a
+gradient), not the kernel; the kernel is held by the forward cases.
 
 Needs an NVIDIA GPU with nvcc (sm_90a); skips elsewhere.  Imports no JAX,
 so it runs where JAX is not installed:
@@ -453,7 +456,8 @@ def test_flash_kernel_without_the_causal_mask(dev, causal, window):
 @pytest.mark.parametrize("D,window", [(64, None), (80, 64)])
 def test_flash_function_gradients_match_plain_autograd(dev, D, window):
     """Forward through the kernel, backward through the plain version:
-    the gradients equal autograd of the plain version alone."""
+    the gradients equal autograd of the plain version alone (the
+    Function's wiring; the backward does not read the kernel's output)."""
     rng = np.random.default_rng(8)
     shapes = ((2, 32, 256, D), (2, 8, 256, D), (2, 8, 256, D))
     base = [torch.tensor(rng.standard_normal(s), dtype=torch.float32,
@@ -475,8 +479,9 @@ def test_flash_function_gradients_match_plain_autograd(dev, D, window):
     (2, 16, 16, 448, 64),     # whisper-medium's decoder, 448 tokens
     (2, 32, 32, 512, 64)])    # zamba2-1.2b's shared block
 def test_flash_function_at_the_training_shapes(dev, B, H, KVH, L, D):
-    """The training phase's attention shapes in f32: the forward against
-    the plain version and the gradients against autograd of it."""
+    """The training phase's attention shapes in f32: the forward (the
+    kernel) against the plain version and the gradients (the Function's
+    wiring) against autograd of it."""
     rng = np.random.default_rng(16)
     shapes = ((B, H, L, D), (B, KVH, L, D), (B, KVH, L, D))
     base = [torch.tensor(rng.standard_normal(s), dtype=torch.float32,
@@ -649,7 +654,9 @@ def test_ssd_scan_function_gradients_match_plain_autograd(dev, dtype,
     """Forward through the kernel, backward through the plain version: the
     forward within the kernel's tolerance of the plain version's, every
     input's gradient (cotangents on y and the final state) within the
-    tolerance of autograd of the plain version alone."""
+    tolerance of autograd of the plain version alone.  The gradients hold
+    the Function's wiring, not the kernel, whose output the backward does
+    not read."""
     *dims, chunk = shape
     base = list(_ssd_inputs(np.random.default_rng(14), *dims, dtype, dev))
     if not with_state:
