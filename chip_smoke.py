@@ -201,10 +201,14 @@ Phases, in order; any failure exits non-zero before the result lines:
      run's tokens; the page pool refuses both (construction, swap, a
      request with frames); a decode step's device and eager time beside
      its read bound, and one admission's;
-  7f. hetero phase: ``serve.run_threaded`` with ``--hetero`` over 3
-     instances of full-width granite-3-2b: one calibration per tier
-     ((16, 4), (8, 2), (4, 1) slots and burst), every request terminal, no
-     page leaked, only the two float paged kernels launched;
+  7f. hetero phase: the params placed through ``serve.shard_registry``
+     (a one-device mesh on a one-rank ``nccl`` group): every leaf's
+     placement is the one ``spec_for`` gives, and one engine's tokens for
+     8 prompts with the placed params equal those without, bit for bit;
+     then ``serve.run_threaded`` with ``--hetero`` over 3 instances of
+     full-width granite-3-2b on the placed params: one calibration per
+     tier ((16, 4), (8, 2), (4, 1) slots and burst), every request
+     terminal, no page leaked, only the two float paged kernels launched;
   8. reference phase: reduced models in float32 on the card and on the
      CPU (the kernels' plain versions) with the same weights must give the
      same greedy tokens through chunked prefill, evict/resume and decode
@@ -243,7 +247,25 @@ Phases, in order; any failure exits non-zero before the result lines:
      256; h2o-danube's window 64 under 128 tokens) trained 3 steps on the
      card (the flash and SSD kernels) and on the CPU (their plain
      versions) from the same weights, tokens and modality extras: losses
-     and final params within 1e-4 (``TRAIN_TOL``), launches exact.
+     and final params within 1e-4 (``TRAIN_TOL``), launches exact;
+ 11. examples phase (``examples_phase``): the twins of
+     ``examples/quickstart.py`` on granite-3-2b whole and of
+     ``examples/multi_model_serving.py`` on granite-3-2b and
+     h2o-danube-1.8b whole, bf16, on the dense backend: every request
+     served, QLM grouping with fewer model swaps than the per-request
+     order, the dense decode kernel launched exactly once a granite layer
+     per granite decode step (h2o-danube's rolling window runs plain) and
+     no other kernel; attainment, TTFTs, swaps and swap time printed;
+ 12. dry-run phase (``dryrun_phase``): ``launch/dryrun.py`` on the fake
+     16 x 16 mesh for ``DRYRUN_PAIRS`` (per-device peak, flops, collective
+     bytes and trace time printed: predictions, not measurements); then
+     on a 1 x 1 fake mesh granite-3-2b's decode step at 8 x 32768 (bf16)
+     and its train step at 2 x 512 (f32, AdamW, remat, the flash kernel's
+     config), each beside the same step run for real on the card (the
+     dense decode kernel, 40 launches; the flash kernel, 80): argument
+     bytes equal exactly; the two peaks (and ``[train]``'s granite peak)
+     printed side by side, not gated (the plain versions' temporaries are
+     not the kernels').
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -1288,7 +1310,7 @@ def serving_shapes() -> dict:
 def _leaves(tree):
     if isinstance(tree, dict):
         tree = list(tree.values())
-    if isinstance(tree, list):
+    if isinstance(tree, (list, tuple)):
         for v in tree:
             yield from _leaves(v)
     else:
@@ -3037,6 +3059,66 @@ def hybrid_encdec_phase() -> dict:
     return total
 
 
+def _engine_tokens(model, params, prompts) -> list:
+    """Greedy tokens of ``prompts`` (12 new tokens each) from one
+    page-pool engine, all admitted at once: a run that batches the same
+    rows the same way every time."""
+    from repro_torch.core.request import Request
+    from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
+
+    eng = ContinuousBatchingEngine(model, params, EngineConfig(
+        max_slots=len(prompts), max_seq_len=128, dtype=torch.bfloat16),
+        model_name="m")
+    reqs = [Request(prompt_tokens=pr, model="m", slo=1e9, max_new_tokens=12)
+            for pr in prompts]
+    for r in reqs:
+        check(eng.admit(r), "placement check: admission refused")
+    while not all(r.finished() for r in reqs):
+        eng.steps()
+    return [r.output_tokens for r in reqs]
+
+
+def hetero_placement(registry) -> dict:
+    """``serve.shard_registry`` on the card: each leaf's placement on the
+    one-device mesh (a one-rank ``nccl`` group) against ``spec_for``'s,
+    and 8 prompts' tokens with the placed params against those without,
+    bit for bit.  Returns the placed registry."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import serve
+
+    (model, params), = registry.values()
+    mesh_lib.release()
+    try:
+        mesh = mesh_lib.make_local_mesh("cuda")
+        placed = serve.placed_registry(registry, mesh)[GRANITE][1]
+        specs = sh.spec_tree(mesh, params, model.param_axes(),
+                             sh.ShardingRules.default())
+        bad = []
+        sh.map_leaves(lambda path, d, spec: None if (
+            d.placements == sh.placements(mesh, spec)
+            and d.to_local().is_cuda) else bad.append(path), placed, specs)
+        n_leaves = sum(1 for _ in _leaves(params))
+        kinds = sorted({str(d.placements) for d in _leaves(placed)})
+        del placed
+    finally:
+        mesh_lib.release()
+    check(not bad, f"hetero placement: leaves off their spec: {bad[:5]}")
+    sharded = serve.shard_registry(registry)
+    check(not torch.distributed.is_initialized(),
+          "shard_registry left its process group")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, 100, size=n).tolist()
+               for n in (5, 17, 33, 9, 64, 2, 40, 21)]
+    got = _engine_tokens(model, sharded[GRANITE][1], prompts)
+    want = _engine_tokens(model, params, prompts)
+    log(f"  [hetero] shard_registry: {n_leaves} leaves on a one-device "
+        f"nccl mesh, each as spec_for places it ({kinds}); tokens of 8 "
+        f"prompts with the placed params == without: {got == want}")
+    check(got == want, "hetero: the placement changed the tokens")
+    return sharded
+
+
 def hetero_phase() -> None:
     """``serve --hetero --threaded`` over 3 instances on full-width
     granite-3-2b (bf16, page pool), launch counts set to 0 just before and
@@ -3051,6 +3133,7 @@ def hetero_phase() -> None:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     registry = {GRANITE: (model, model.init(gen, torch.bfloat16, "cuda"))}
+    registry = hetero_placement(registry)
     args = argparse.Namespace(**{**vars(SERVE_ARGS), "hetero": True,
                                  "threaded": True, "instances": 3})
     tiers = []
@@ -3328,6 +3411,7 @@ def train_full(arch: str, steps: int, batch: int, seq: int, *,
     torch.cuda.reset_peak_memory_stats()
     res, counts = _train(cfg, args)
     peak = torch.cuda.max_memory_allocated()
+    res["peak_bytes"] = peak
     want = _train_launches(cfg, steps)
     log(f"  {arch} f32 B={batch} L={seq}, flag {'on' if flag else 'off'}: "
         f"{cfg.num_layers} of {full.num_layers} layers (depth cut: "
@@ -3356,13 +3440,14 @@ def _same_step(label, on, off) -> None:
           f"on != off")
 
 
-def training_phase() -> dict:
+def training_phase(peaks: dict) -> dict:
     """Full-width training (f32, AdamW, remat), through the flash kernel
     under ``use_pallas_attention`` and through the SSD scan: 3 granite-3-2b
     steps, one step with the flag off from the same weights and batch, one
     h2o-danube-1.8b step; then each family of TRAIN_RUNS, zamba2 once more
     for one step with the flag off.  Returns the kernels' launches summed
-    over the runs."""
+    over the runs; ``peaks[GRANITE]`` takes granite's peak memory (bytes,
+    with what earlier phases left allocated)."""
     # the serve phases' engines sit in reference cycles (engine, agent,
     # controller) that hold both models' weights until a collection
     gc.collect()
@@ -3376,6 +3461,7 @@ def training_phase() -> dict:
             total[k] += n
 
     on, counts = train_full(GRANITE, 3, 2, 512)
+    peaks[GRANITE] = on["peak_bytes"]
     add(counts)
     off, counts = train_full(GRANITE, 1, 2, 512, flag=False)
     add(counts)
@@ -3447,6 +3533,234 @@ def training_reference_phase() -> None:
             if not ok:
                 failures.append(f"{name}: {what}")
     check(not failures, f"card training parts from the CPU: {failures}")
+
+
+def _counting_decode(model, counts: dict, name: str):
+    """``model`` with its dense ``decode_step`` counting its calls in
+    ``counts[name]``."""
+    def decode_step(*args):
+        counts[name] = counts.get(name, 0) + 1
+        return model.decode_step(*args)
+    return dataclasses.replace(model, decode_step=decode_step)
+
+
+def _dense_decode_launches(registry, calls: dict) -> dict:
+    """Each kernel's expected launches from ``calls[name]`` dense decode
+    steps: the dense decode kernel once a layer of a full-attention
+    model; a sliding window's runs plain; nothing else."""
+    want = dict.fromkeys(KERNELS, 0)
+    want["decode_attention"] = sum(
+        registry[n][0].cfg.num_layers * k for n, k in calls.items()
+        if registry[n][0].cfg.sliding_window is None)
+    return want
+
+
+def examples_phase() -> dict:
+    """The README's two examples at full width on the card (their twins
+    ``launch/quickstart.py`` and ``launch/multi_model_serving.py``), launch
+    counts set to 0 just before each and read just after.  Returns the
+    launches summed."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import multi_model_serving as mms
+    from repro_torch.launch import quickstart
+    from repro_torch.models import build_model
+
+    total = dict.fromkeys(KERNELS, 0)
+    cfg = get_arch(GRANITE)
+    calls = {}
+    model = _counting_decode(build_model(cfg), calls, "granite")
+    reset_launches()
+    t0 = time.monotonic()
+    res = quickstart.run(cfg, device="cuda", model=model)
+    launches = read_launches()
+    wall = time.monotonic() - t0
+    reqs = res["requests"]
+    want = _dense_decode_launches({"granite": (model, None)}, calls)
+    st = res["stats"]
+    log(f"  [examples] quickstart, {cfg.name} whole ({cfg.num_layers} "
+        f"layers, bf16, dense): {len(reqs)} requests in {res['groups']} "
+        f"groups, attainment {res['attainment']:.3f}, TTFTs (s) "
+        f"{[round(r.ttft(), 4) for r in reqs]}, {st.decode_iterations} "
+        f"decode steps in {st.decode_time:.3f} s, {st.prefill_chunks} "
+        f"chunk rounds in {st.prefill_time:.3f} s, wall {wall:.1f} s "
+        f"(weights drawn included); launches "
+        f"{ {k: n for k, n in launches.items() if n} } (expected "
+        f"{ {k: n for k, n in want.items() if n} })")
+    check(all(r.finished() and len(r.output_tokens) == 6
+              and all(0 <= t < cfg.vocab_size for t in r.output_tokens)
+              for r in reqs), "quickstart: a request is unserved")
+    check(launches == want, f"quickstart launches {launches} != {want}")
+    for k, n in launches.items():
+        total[k] += n
+    del model, res, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    calls = {}
+    registry = mms.build_registry("cuda", {n: get_arch(n)
+                                           for n in mms.MODELS})
+    registry = {n: (_counting_decode(m, calls, n), p)
+                for n, (m, p) in registry.items()}
+    reset_launches()
+    t0 = time.monotonic()
+    out = mms.main(["--device", "cuda"], registry=registry)
+    launches = read_launches()
+    wall = time.monotonic() - t0
+    want = _dense_decode_launches(registry, calls)
+    inter, qlm = out["interleaved"], out["qlm"]
+    log(f"  [examples] multi-model, {' + '.join(mms.MODELS)} whole (bf16, "
+        f"dense): per-request order {inter.model_swaps} swaps in "
+        f"{inter.swap_time:.4f} s, QLM groups {qlm.model_swaps} swaps in "
+        f"{qlm.swap_time:.4f} s; decode steps {calls}; wall {wall:.1f} s; "
+        f"launches { {k: n for k, n in launches.items() if n} } (expected "
+        f"{ {k: n for k, n in want.items() if n} })")
+    check(qlm.model_swaps < inter.model_swaps,
+          "multi-model: grouping did not cut the swaps")
+    # serve() returns once every request has finished
+    check(inter.tokens_generated == qlm.tokens_generated > 0,
+          f"multi-model: the orders generated {inter.tokens_generated} and "
+          f"{qlm.tokens_generated} tokens")
+    check(launches == want, f"multi-model launches {launches} != {want}")
+    for k, n in launches.items():
+        total[k] += n
+    del registry, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+# (arch, shape) pairs of the dry run on the fake 16 x 16 mesh: a dense
+# decode, an MoE train step, the hybrid's windowed long context
+DRYRUN_PAIRS = ((GRANITE, "decode_32k"), ("qwen3-moe-30b-a3b", "train_4k"),
+                ("zamba2-1.2b", "long_500k"))
+
+
+def _dry_line(rec) -> str:
+    mem, coll = rec["memory"], rec["collectives"]
+    return (f"argument {mem['argument_bytes_per_device']} B, peak "
+            f"{mem['peak_bytes_per_device'] / 2**30:.3f} GiB/dev, flops "
+            f"{rec['cost']['flops_per_device']:.4g}/dev, collectives "
+            f"{coll['bytes_by_op']} B in {coll['count_by_op']}, fallbacks "
+            f"{rec['fallback_ops']}, {len(rec['dropped_shardings'])} axes "
+            f"dropped, trace {rec['trace_s']} s")
+
+
+def _card_step(label, dry, fn, args, want) -> dict:
+    """``fn(*args)`` once on the card, launch counts set to 0 just before
+    and read just after, against the dry run's record ``dry`` of the same
+    step: argument bytes equal exactly; both peaks printed (the card's
+    less what was allocated beside the arguments), not gated.  Returns
+    the launches."""
+    arg_bytes = sum(t.numel() * t.element_size() for t in _leaves(args)
+                    if isinstance(t, torch.Tensor))
+    torch.cuda.synchronize()
+    beside = torch.cuda.memory_allocated() - arg_bytes
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.monotonic()
+    fn(*args)
+    torch.cuda.synchronize()
+    step_s = time.monotonic() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() - beside
+    mem = dry["memory"]
+    log(f"  [dryrun] {label}: argument bytes dry run "
+        f"{mem['argument_bytes_per_device']} / card {arg_bytes}; peak dry "
+        f"run {mem['peak_bytes_per_device'] / 2**30:.3f} GiB / card "
+        f"{peak / 2**30:.3f} GiB (card less {beside / 2**30:.3f} GiB "
+        f"allocated beside the arguments; gap "
+        f"{(mem['peak_bytes_per_device'] - peak) / 2**30:+.3f} GiB); "
+        f"step {step_s:.3f} s (host clock, first call); launches "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    check(mem["argument_bytes_per_device"] == arg_bytes,
+          f"{label}: argument bytes differ")
+    check(launches == want, f"{label}: launches {launches} != {want}")
+    return launches
+
+
+def dryrun_phase(train_peak: int) -> dict:
+    """``launch/dryrun.py`` on the fake production mesh, then granite's
+    decode and train steps on a 1 x 1 fake mesh against the same steps
+    on the card.  Returns the card steps' launches summed."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import build_model
+    from repro_torch.models.model_factory import materialize_batch
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.train_step import make_train_step
+
+    mesh_lib.release()
+    try:
+        for arch, shape in DRYRUN_PAIRS:
+            rec = dryrun.run_one(arch, shape, save=False)
+            log(f"  [dryrun] {arch} {shape} {rec['mesh']} (prediction): "
+                + _dry_line(rec))
+            check(rec["applicable"] and rec["cost"]["flops_per_device"] > 0
+                  and rec["memory"]["peak_bytes_per_device"]
+                  >= rec["memory"]["argument_bytes_per_device"] > 0,
+                  f"dry run {arch} {shape}: {rec}")
+        mesh_lib.release()
+        one = mesh_lib.make_debug_mesh(1, 1)
+        decode = dryrun.run_one(
+            GRANITE, "decode_32k", mesh=one, save=False,
+            shape_transform=lambda s: dataclasses.replace(s, global_batch=8))
+        log(f"  [dryrun] {GRANITE} decode 8 x 32768 {decode['mesh']}: "
+            + _dry_line(decode))
+        train = dryrun.run_one(
+            GRANITE, "train_4k", mesh=one, save=False, dtype=torch.float32,
+            config_transform=lambda c: dataclasses.replace(
+                c, use_pallas_attention=True),
+            shape_transform=lambda s: dataclasses.replace(
+                s, global_batch=2, seq_len=512))
+        log(f"  [dryrun] {GRANITE} train 2 x 512 f32 {train['mesh']}: "
+            + _dry_line(train))
+    finally:
+        mesh_lib.release()
+
+    total = dict.fromkeys(KERNELS, 0)
+    cfg = get_arch(GRANITE)
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = model.init(gen, torch.bfloat16, "cuda")
+    cache = model.init_cache(8, 32768, torch.bfloat16, "cuda")
+    data = materialize_batch(cfg, 8, 32768, "decode", gen, torch.bfloat16,
+                             "cuda")
+    want = dict.fromkeys(KERNELS, 0)
+    want["decode_attention"] = cfg.num_layers
+    with torch.no_grad():
+        got = _card_step("decode 8 x 32768 bf16", decode, model.decode_step,
+                         (params, cache, data["tokens"], data["lengths"]),
+                         want)
+    for k, n in got.items():
+        total[k] += n
+    del params, cache, data
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tcfg = dataclasses.replace(cfg, use_pallas_attention=True)
+    tmodel = build_model(tcfg)
+    params = tmodel.init(gen, torch.float32, "cuda")
+    opt = AdamW(learning_rate=1e-4)
+    state = opt.init(params)
+    batch = materialize_batch(tcfg, 2, 512, "train", gen, torch.float32,
+                              "cuda")
+    want = dict.fromkeys(KERNELS, 0)
+    want["flash_attention"] = cfg.num_layers * 2
+    got = _card_step("train 2 x 512 f32", train,
+                     make_train_step(tmodel, opt, remat=True),
+                     (params, state, batch), want)
+    log(f"  [dryrun] [train]'s granite peak (3 steps, with what earlier "
+        f"phases left allocated): {train_peak / 2**30:.3f} GiB")
+    for k, n in got.items():
+        total[k] += n
+    del params, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
 
 
 def decode_timings(src: Path) -> int:
@@ -3768,7 +4082,8 @@ def main() -> int:
 
     log("[train] full width, float32, use_pallas_attention, every family")
     t0 = time.monotonic()
-    for k, n in training_phase().items():
+    train_peaks = {}
+    for k, n in training_phase(train_peaks).items():
         launches[k] = launches.get(k, 0) + n
     log(f"[train] ok in {time.monotonic() - t0:.1f} s")
 
@@ -3776,6 +4091,18 @@ def main() -> int:
     t0 = time.monotonic()
     training_reference_phase()
     log(f"[train-reference] ok in {time.monotonic() - t0:.1f} s")
+
+    log("[examples] quickstart and multi-model twins, full width, bf16")
+    t0 = time.monotonic()
+    for k, n in examples_phase().items():
+        launches[k] = launches.get(k, 0) + n
+    log(f"[examples] ok in {time.monotonic() - t0:.1f} s")
+
+    log("[dryrun] fake 16 x 16 mesh; 1 x 1 against the card")
+    t0 = time.monotonic()
+    for k, n in dryrun_phase(train_peaks[GRANITE]).items():
+        launches[k] = launches.get(k, 0) + n
+    log(f"[dryrun] ok in {time.monotonic() - t0:.1f} s")
     log(f"[total] {time.monotonic() - t_run:.1f} s")
 
     kernels = [{

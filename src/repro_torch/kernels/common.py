@@ -285,11 +285,15 @@ def split_range(length: int, cap: int, splits: int,
 
 
 def on_cpu(tensors: Dict[str, torch.Tensor]) -> bool:
-    """True when every tensor lies on the CPU (the plain version runs),
-    False when all lie on one CUDA device (the kernel runs).  Anything else
-    raises: a CUDA tensor never reaches the plain version."""
+    """True when every tensor lies on the CPU (the plain version runs) or
+    on the ``meta`` device, False when all lie on one CUDA device (the
+    kernel runs).  Anything else raises: a CUDA tensor never reaches the
+    plain version.  Meta tensors are the dry run's
+    (``launch/dryrun.py``): no kernel can take them, since a kernel reads
+    data through its pointers, so the plain version carries their shapes
+    through, as the reference's dry run lowers its jnp path."""
     devices = {t.device for t in tensors.values()}
-    if devices == {torch.device("cpu")}:
+    if devices in ({torch.device("cpu")}, {torch.device("meta")}):
         return True
     if len(devices) == 1 and next(iter(devices)).type == "cuda":
         return False

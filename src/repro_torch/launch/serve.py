@@ -37,10 +37,8 @@ meanwhile.  Both drivers calibrate the profiles before the wall clock
 starts, which also builds and loads the kernels the engines run.
 ``--hetero`` gives instance i the fast / mid / slow tier ``i % 3``
 (``HETERO_TIERS``: slots x2 / x1 / x0.5, decode burst 4 / 2 / 1), each
-tier calibrated on its own throwaway engine.  The reference also places
-the params through its sharding rules there (``shard_registry``), on a
-one-device mesh where every leaf lands replicated; on one card that
-placement changes nothing, so the port leaves it out.
+tier calibrated on its own throwaway engine, and places every model's
+params through the sharding rules first (``shard_registry``).
 """
 from __future__ import annotations
 
@@ -51,6 +49,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_arch
 from repro_torch.core.global_scheduler import InstanceInfo
@@ -59,6 +58,9 @@ from repro_torch.core.qlm import QLMConfig, QLMController
 from repro_torch.core.request import make_request
 from repro_torch.core.virtual_queue import VirtualQueue
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (ShardingRules, build_shardings,
+                                              distribute, map_leaves)
+from repro_torch.launch.mesh import make_local_mesh, release
 from repro_torch.models import build_model
 from repro_torch.serving import (ContinuousBatchingEngine, EngineConfig,
                                  ThreadedCluster)
@@ -78,6 +80,38 @@ def build_registry(arch_names, seed: int = 0, device="cuda"):
         gen.manual_seed(seed)
         registry[name] = (model, model.init(gen, dtype, dev))
     return registry
+
+
+def placed_registry(registry, mesh):
+    """name -> (Model, params as DTensors on ``mesh``), each leaf placed by
+    the TP sharding rules (``distributed/sharding.py``)."""
+    rules = ShardingRules.default()
+    return {name: (model, distribute(mesh, params, build_shardings(
+                mesh, params, model.param_axes(), rules)))
+            for name, (model, params) in registry.items()}
+
+
+def shard_registry(registry):
+    """Place every model's params through the TP sharding rules.
+
+    The mesh is one device, the params' own (on a one-rank process group,
+    ``launch/mesh.py::make_local_mesh``), so every leaf lands replicated;
+    but the placement goes through the same ``build_shardings`` path a
+    multi-device mesh would use, so the DEFAULT_RULES TP split (ff / heads
+    over the "model" axis) applies unchanged where more devices are
+    present.  The engines take each DTensor's local tensor, and a process
+    group set up here ends here.
+    """
+    first = next(iter(registry.values()))[1]["embed"]
+    owned = not dist.is_initialized()
+    mesh = make_local_mesh(first.device)
+    try:
+        return {name: (model, map_leaves(lambda _, t: t.to_local(), params))
+                for name, (model, params)
+                in placed_registry(registry, mesh).items()}
+    finally:
+        if owned:
+            release()
 
 
 # fast / mid / slow capacity tiers for --hetero (instance i -> tier i%3):
@@ -318,6 +352,8 @@ def main(argv=None) -> dict:
 
     arch_names = [args.arch] + ([args.arch2] if args.arch2 else [])
     registry = build_registry(arch_names, args.seed, args.device)
+    if args.hetero:
+        registry = shard_registry(registry)
 
     out = {}
     if args.compare_drivers:

@@ -64,6 +64,22 @@ def init_attention(gen: torch.Generator, cfg, dtype: torch.dtype,
     return p
 
 
+def attention_param_axes(cfg) -> Dict[str, Tuple[str, ...]]:
+    """Logical sharding axes per leaf of ``init_attention``'s dict (the
+    reference's ``attention_param_axes``)."""
+    p = {
+        "wq": ("embed", "heads_x_dim"),
+        "wk": ("embed", "kv_heads_x_dim"),
+        "wv": ("embed", "kv_heads_x_dim"),
+        "wo": ("heads_x_dim", "embed"),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = ("heads_x_dim",)
+        p["bk"] = ("kv_heads_x_dim",)
+        p["bv"] = ("kv_heads_x_dim",)
+    return p
+
+
 def paged_kv_shape(cfg, num_blocks: int, block_size: int) -> Tuple[int, ...]:
     """Shape of one layer's k (or v) page pool: ``num_blocks`` pages plus
     the write sink."""
@@ -237,45 +253,60 @@ def attend_prefill(params, cfg, x: torch.Tensor, positions: torch.Tensor,
                                       * cfg.resolved_head_dim)
 
     S = cache["k"].shape[2] - 1
-    rows = torch.arange(B, device=x.device)[:, None]
     if cfg.sliding_window is not None and L > S:
         # the last S positions, each at its rolling column
         slots = torch.remainder(torch.arange(L - S, L, device=x.device), S)
-        _write_rows(cfg, cache, k[:, L - S:], v[:, L - S:], rows,
-                    slots[None])
+        _write_dense(cfg, cache, k[:, L - S:], v[:, L - S:],
+                     slots[None].expand(B, S))
     else:
         for leaf in cache.values():
             leaf[:, :, L:S] = 0
-        _write_rows(cfg, cache, k, v, rows,
-                    torch.arange(L, device=x.device)[None])
+        _write_dense(cfg, cache, k, v,
+                     torch.arange(L, device=x.device)[None].expand(B, L))
     return out @ params["wo"]
 
 
-def _write_rows(cfg, cache: Dict[str, torch.Tensor], k: torch.Tensor,
-                v: torch.Tensor, i0: torch.Tensor, i1: torch.Tensor) -> None:
-    """Scatter per-token k/v (..., KVH, D) into every leaf at ``[i0, :,
-    i1]`` (page and row of a page pool; sequence and slot of a dense
-    cache), in place, quantizing first for int8 leaves.  ``i0``/``i1``
-    broadcast to the leading dims of k/v."""
+def _kv_rows(cfg, k: torch.Tensor, v: torch.Tensor
+             ) -> Dict[str, torch.Tensor]:
+    """The values each cache leaf takes for k/v rows: the rows, or int8
+    rows and their scales when ``cfg.kv_quant``."""
     if cfg.kv_quant:
         kq, ks = _quantize_kv(k)
         vq, vs = _quantize_kv(v)
-        rows = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
-    else:
-        rows = {"k": k, "v": v}
-    i0, i1 = i0.long(), i1.long()
-    for name, val in rows.items():
-        cache[name][i0, :, i1] = val.to(cache[name].dtype)
+        return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    return {"k": k, "v": v}
+
+
+def _write_dense(cfg, cache: Dict[str, torch.Tensor], k: torch.Tensor,
+                 v: torch.Tensor, slots: torch.Tensor) -> None:
+    """Write per-token k/v (B, n, KVH, D) into the dense per-slot cache at
+    ``slots`` (B, n) of each row, in place, quantizing first for int8
+    leaves.  A scatter along the slot axis, not an indexed put: on a
+    batch-sharded DTensor cache (the dry run's) each shard of rows then
+    writes its own rows, where DTensor shards no indexed put over an
+    indexed dimension."""
+    slots = slots.long()
+    for name, val in _kv_rows(cfg, k, v).items():
+        leaf = cache[name]
+        val = val.transpose(1, 2).to(leaf.dtype)          # (B, KVH, n[, D])
+        idx = slots[:, None, :]
+        if val.dim() == 4:
+            idx = idx[..., None]
+        leaf.scatter_(2, idx.expand(val.shape), val)
 
 
 def _write_pages(cfg, pool: Dict[str, torch.Tensor], k: torch.Tensor,
                  v: torch.Tensor, page: torch.Tensor,
                  offset: torch.Tensor) -> None:
     """Scatter per-token k/v (..., KVH, D) into the pool at (page, offset),
-    in place.  ``page``/``offset`` share the leading dims of k/v; sentinel
-    page ids (>= num_blocks) are redirected to the write sink."""
+    in place, quantizing first for int8 leaves.  ``page``/``offset`` share
+    the leading dims of k/v; sentinel page ids (>= num_blocks) are
+    redirected to the write sink."""
     sink = pool["k"].shape[0] - 1
-    _write_rows(cfg, pool, k, v, torch.clamp(page, max=sink), offset)
+    page = torch.clamp(page, max=sink).long()
+    offset = offset.long()
+    for name, val in _kv_rows(cfg, k, v).items():
+        pool[name][page, :, offset] = val.to(pool[name].dtype)
 
 
 def _live_pages(cfg, pool: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, ...]:
@@ -399,8 +430,7 @@ def attend_prefill_chunk(params, cfg, x: torch.Tensor,
     write_slot = torch.clamp(torch.where(in_chunk, slot, S), max=S)
     if swa:
         k_all, v_all = both_segments()                # the pre-write cache
-    _write_rows(cfg, cache, k, v,
-                torch.arange(B, device=x.device)[:, None], write_slot)
+    _write_dense(cfg, cache, k, v, write_slot)
     if not swa:
         k_all, v_all = both_segments()
 
@@ -444,8 +474,7 @@ def attend_decode(params, cfg, x: torch.Tensor, lengths: torch.Tensor,
     q, k, v = _project_qkv(params, cfg, x, lengths[:, None])
     swa = cfg.sliding_window is not None
     slot = torch.remainder(lengths, S) if swa else torch.clamp(lengths, max=S)
-    _write_rows(cfg, cache, k[:, 0], v[:, 0],
-                torch.arange(B, device=x.device), slot)
+    _write_dense(cfg, cache, k, v, slot[:, None])
     if not swa:
         # a finished slot idling in a burst sits at lengths == S: clamp so
         # the kernel never reads the sink column

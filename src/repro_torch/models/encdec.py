@@ -102,6 +102,38 @@ def _ln(cfg, x: torch.Tensor, p, prefix: str) -> torch.Tensor:
                              cfg.rms_norm_eps)
 
 
+def encdec_param_axes(cfg):
+    """Logical sharding axes of ``init_encdec_lm``'s tree, one block dict
+    per encoder and decoder layer."""
+    attn_ax = attention.attention_param_axes(cfg)
+    mlp_ax = {"fc1": ("embed", "ff"), "b1": ("ff",),
+              "fc2": ("ff", "embed"), "b2": ("embed",)}
+    enc = {
+        "attn_norm_s": ("embed",), "attn_norm_b": ("embed",),
+        "attn": attn_ax,
+        "mlp_norm_s": ("embed",), "mlp_norm_b": ("embed",),
+        "mlp": mlp_ax,
+    }
+    dec = {
+        "self_norm_s": ("embed",), "self_norm_b": ("embed",),
+        "self_attn": attn_ax,
+        "cross_norm_s": ("embed",), "cross_norm_b": ("embed",),
+        "cross_attn": {"wq": ("embed", "heads_x_dim"),
+                       "wk": ("embed", "kv_heads_x_dim"),
+                       "wv": ("embed", "kv_heads_x_dim"),
+                       "wo": ("heads_x_dim", "embed")},
+        "mlp_norm_s": ("embed",), "mlp_norm_b": ("embed",),
+        "mlp": mlp_ax,
+    }
+    return {
+        "embed": ("vocab", "embed"),
+        "enc_blocks": [enc for _ in range(cfg.encoder.num_layers)],
+        "enc_final_s": ("embed",), "enc_final_b": ("embed",),
+        "dec_blocks": [dec for _ in range(cfg.num_layers)],
+        "final_s": ("embed",), "final_b": ("embed",),
+    }
+
+
 def encode(params, cfg, frame_embeds: torch.Tensor) -> torch.Tensor:
     """frame_embeds: (B, F, d), precomputed (the conv frontend stub) ->
     the encoder's output (B, F, d)."""

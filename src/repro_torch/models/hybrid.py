@@ -55,6 +55,20 @@ def init_hybrid_lm(gen: torch.Generator, cfg, dtype: torch.dtype,
     return params
 
 
+def hybrid_param_axes(cfg):
+    """Logical sharding axes of ``init_hybrid_lm``'s tree: mamba2's, and
+    the shared block's once."""
+    ax = ssm_lm.ssm_lm_param_axes(cfg)
+    ax["shared_attn"] = {
+        "attn_norm": ("embed",),
+        "attn": attention.attention_param_axes(cfg),
+        "mlp_norm": ("embed",),
+        "mlp": {"gate": ("embed", "ff"), "up": ("embed", "ff"),
+                "down": ("ff", "embed")},
+    }
+    return ax
+
+
 def forward_train(params, cfg, x: torch.Tensor, positions: torch.Tensor, *,
                   remat: bool = True) -> torch.Tensor:
     """x: (B, L, d) embeddings -> the final-normed hidden states (B, L, d).

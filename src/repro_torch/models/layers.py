@@ -154,9 +154,12 @@ def remat_call(remat: bool, fn, *args):
 def next_token_ce(logits: torch.Tensor, targets: torch.Tensor
                   ) -> torch.Tensor:
     """Mean cross-entropy of f32 ``logits`` (B, L, V) against integer
-    ``targets`` (B, L), a 0-dim tensor."""
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    ``targets`` (B, L), a 0-dim tensor.  Both terms keep their (B, L, 1)
+    shape up to the mean: on vocab-sharded DTensor logits (the dry run)
+    the gathered gold logits are a masked partial sum, which DTensor can
+    reduce only in the shape it was gathered in."""
+    logz = torch.logsumexp(logits, dim=-1, keepdim=True)
+    gold = torch.gather(logits, -1, targets[..., None])
     return torch.mean(logz - gold)
 
 

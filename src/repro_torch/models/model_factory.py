@@ -7,6 +7,11 @@ prefill and decode).
 
 ``build_model(cfg)`` returns a ``Model`` with:
   * ``init(gen, dtype, device)``  -> params (random, from ``gen``)
+  * ``param_axes()`` -> the params' tree with a tuple of logical axis
+    names at each leaf (``distributed/sharding.py``)
+  * ``cache_axes()`` -> the same for ``init_cache``'s tree
+  * ``eval_shape_params(dtype)`` -> the params as ``meta`` tensors: their
+    shapes and dtypes, nothing allocated (the dry run's)
   * ``loss(params, batch, remat=True)`` -> (scalar, metrics)
   * ``init_cache(batch, max_seq, dtype, device)`` -> dense per-slot caches
     (the SSM's conv and state; the hybrid's also its sites' KV under
@@ -47,14 +52,38 @@ from repro_torch.models import encdec, hybrid, ssm_lm, transformer
 class Model:
     cfg: ModelConfig
     init: Callable
+    param_axes: Callable
     loss: Callable
     init_cache: Callable
+    cache_axes: Callable
     decode_step: Callable
     prefill: Optional[Callable] = None
     prefill_chunk: Optional[Callable] = None
     init_paged_cache: Optional[Callable] = None
     prefill_chunk_paged: Optional[Callable] = None
     decode_step_paged: Optional[Callable] = None
+
+    def eval_shape_params(self, dtype: torch.dtype = torch.float32):
+        """The params on the ``meta`` device: shapes and dtypes without
+        allocation (the reference's ``jax.eval_shape`` of ``init``)."""
+        return self.init(torch.Generator(device="cpu"), dtype, "meta")
+
+
+def _kv_cache_axes_tree(cfg):
+    """Logical axes of a stacked dense KV cache, (layers, B, KVH, S + 1,
+    D): the write-sink column sits on the ``kv_seq`` axis."""
+    ax = (None, "batch", "kv_heads", "kv_seq", None)
+    tree = {"k": ax, "v": ax}
+    if cfg.kv_quant:
+        sax = (None, "batch", "kv_heads", "kv_seq")
+        tree["k_scale"] = sax
+        tree["v_scale"] = sax
+    return tree
+
+
+def _ssm_state_axes():
+    return {"conv": (None, "batch", None, "ssm_inner"),
+            "ssm": (None, "batch", "ssm_heads", None, None)}
 
 
 def build_model(cfg: ModelConfig) -> Model:
@@ -74,6 +103,8 @@ def _build_transformer(cfg: ModelConfig) -> Model:
         cfg=cfg,
         init=lambda gen, dtype=torch.float32, device="cuda":
             transformer.init_lm(gen, cfg, dtype, resolve_device(device)),
+        param_axes=lambda: transformer.lm_param_axes(cfg),
+        cache_axes=lambda: _kv_cache_axes_tree(cfg),
         loss=lambda params, batch, remat=True:
             transformer.loss_fn(params, cfg, batch, remat=remat),
         init_cache=lambda batch, max_seq, dtype=torch.float32, device="cuda":
@@ -104,6 +135,8 @@ def _build_ssm(cfg: ModelConfig) -> Model:
         cfg=cfg,
         init=lambda gen, dtype=torch.float32, device="cuda":
             ssm_lm.init_ssm_lm(gen, cfg, dtype, resolve_device(device)),
+        param_axes=lambda: ssm_lm.ssm_lm_param_axes(cfg),
+        cache_axes=_ssm_state_axes,
         loss=lambda params, batch, remat=True:
             ssm_lm.loss_fn(params, cfg, batch, remat=remat),
         init_cache=lambda batch, max_seq, dtype=torch.float32, device="cuda":
@@ -121,6 +154,9 @@ def _build_hybrid(cfg: ModelConfig) -> Model:
         cfg=cfg,
         init=lambda gen, dtype=torch.float32, device="cuda":
             hybrid.init_hybrid_lm(gen, cfg, dtype, resolve_device(device)),
+        param_axes=lambda: hybrid.hybrid_param_axes(cfg),
+        cache_axes=lambda: {**_ssm_state_axes(),
+                            "kv": _kv_cache_axes_tree(cfg)},
         loss=lambda params, batch, remat=True:
             hybrid.loss_fn(params, cfg, batch, remat=remat),
         init_cache=lambda batch, max_seq, dtype=torch.float32, device="cuda":
@@ -133,11 +169,17 @@ def _build_hybrid(cfg: ModelConfig) -> Model:
     )
 
 
+_CROSS_AXES = (None, "batch", "kv_heads", None, None)
+
+
 def _build_encdec(cfg: ModelConfig) -> Model:
     return Model(
         cfg=cfg,
         init=lambda gen, dtype=torch.float32, device="cuda":
             encdec.init_encdec_lm(gen, cfg, dtype, resolve_device(device)),
+        param_axes=lambda: encdec.encdec_param_axes(cfg),
+        cache_axes=lambda: {"self": _kv_cache_axes_tree(cfg),
+                            "cross_k": _CROSS_AXES, "cross_v": _CROSS_AXES},
         loss=lambda params, batch, remat=True:
             encdec.loss_fn(params, cfg, batch, remat=remat),
         init_cache=lambda batch, max_seq, dtype=torch.float32, device="cuda":

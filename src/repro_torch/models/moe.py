@@ -62,6 +62,16 @@ def init_moe(gen: torch.Generator, cfg, dtype: torch.dtype,
     }
 
 
+def moe_param_axes(cfg) -> Dict[str, Tuple[str, ...]]:
+    """Logical sharding axes of ``init_moe``'s leaves (the reference's)."""
+    return {
+        "router": ("embed", "experts"),
+        "gate": ("experts", "embed", "moe_ff"),
+        "up": ("experts", "embed", "moe_ff"),
+        "down": ("experts", "moe_ff", "embed"),
+    }
+
+
 def _topk_routing(logits: torch.Tensor, k: int
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """logits: (T, E) -> (weights (T, k) f32, expert_ids (T, k) int64,

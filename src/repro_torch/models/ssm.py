@@ -80,6 +80,21 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                     else init_state.float().contiguous(), return_state=True)
 
 
+def mamba_param_axes(cfg) -> Dict[str, Tuple[Optional[str], ...]]:
+    """Logical sharding axes of ``init_mamba_block``'s leaves (the
+    reference's)."""
+    return {
+        "in_proj": ("embed", "ssm_inner"),
+        "conv_w": (None, "ssm_inner"),
+        "conv_b": ("ssm_inner",),
+        "A_log": ("ssm_heads",),
+        "dt_bias": ("ssm_heads",),
+        "D": ("ssm_heads",),
+        "norm_scale": ("ssm_inner",),
+        "out_proj": ("ssm_inner", "embed"),
+    }
+
+
 def ssd_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bm: torch.Tensor, Cm: torch.Tensor, state: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -36,6 +36,17 @@ def init_ssm_lm(gen: torch.Generator, cfg, dtype: torch.dtype,
     }
 
 
+def ssm_lm_param_axes(cfg):
+    """Logical sharding axes of ``init_ssm_lm``'s tree, one block dict per
+    layer."""
+    return {
+        "embed": ("vocab", "embed"),
+        "blocks": [{"norm": ("embed",), "mamba": ssm_lib.mamba_param_axes(cfg)}
+                   for _ in range(cfg.num_layers)],
+        "final_norm": ("embed",),
+    }
+
+
 def block_train(cfg, x: torch.Tensor, bp) -> torch.Tensor:
     """One residual mamba layer over a whole sequence, from a zero state
     (the state it ends in is dropped)."""

@@ -41,6 +41,21 @@ def init_block(gen: torch.Generator, cfg, dtype: torch.dtype,
     return p
 
 
+def block_param_axes(cfg):
+    """Logical sharding axes of one ``init_block`` dict."""
+    p = {
+        "attn_norm": ("embed",),
+        "attn": attention.attention_param_axes(cfg),
+        "mlp_norm": ("embed",),
+    }
+    if cfg.moe is not None:
+        p["moe"] = moe_lib.moe_param_axes(cfg)
+    else:
+        p["mlp"] = {"gate": ("embed", "ff"), "up": ("embed", "ff"),
+                    "down": ("ff", "embed")}
+    return p
+
+
 def init_lm(gen: torch.Generator, cfg, dtype: torch.dtype,
             device: torch.device):
     """Random weights drawn on ``device`` from ``gen`` (a generator of that
@@ -60,6 +75,22 @@ def init_lm(gen: torch.Generator, cfg, dtype: torch.dtype,
         p["vision_proj"] = layers.dense_init(gen, in_dim, cfg.d_model, dtype,
                                              device)
     return p
+
+
+def lm_param_axes(cfg):
+    """Logical sharding axes of ``init_lm``'s tree, one block dict per
+    layer (a per-layer leaf has no ``layers`` dimension, where the
+    reference's stacked leaves leave theirs unnamed)."""
+    ax = {
+        "embed": ("vocab", "embed"),
+        "blocks": [block_param_axes(cfg) for _ in range(cfg.num_layers)],
+        "final_norm": ("embed",),
+    }
+    if not cfg.tie_embeddings:
+        ax["lm_head"] = ("embed", "vocab")
+    if cfg.vision is not None:
+        ax["vision_proj"] = ("embed", "embed_in")
+    return ax
 
 
 def init_paged_cache(cfg, num_blocks: int, block_size: int,
@@ -102,6 +133,28 @@ def _block_train(cfg, x: torch.Tensor, positions: torch.Tensor,
     return x + out, aux
 
 
+def _seq_shard(cfg, x: torch.Tensor) -> torch.Tensor:
+    """With ``cfg.shard_activations_seq``, the residual stream between
+    blocks sharded on the sequence over the mesh's ``"model"`` axis (the
+    reference's lever: the saved remat residuals shrink by the TP degree):
+    a DTensor ``x`` is redistributed to Shard(1) on that axis, its other
+    axes' placements kept.  Activations on no such mesh raise, as the
+    reference's constraint does outside a mesh."""
+    if not cfg.shard_activations_seq:
+        return x
+    mesh = getattr(x, "device_mesh", None)
+    names = mesh.mesh_dim_names or () if mesh is not None else ()
+    if "model" not in names:
+        raise RuntimeError(
+            "shard_activations_seq requires a non-empty mesh with a 'model' "
+            "axis: the activations are not DTensors on one (place the "
+            "params with distributed/sharding.py)")
+    from torch.distributed.tensor import Shard
+    placements = list(x.placements)
+    placements[names.index("model")] = Shard(1)
+    return x.redistribute(mesh, placements)
+
+
 def forward_train(params, cfg, x_embeds: torch.Tensor,
                   positions: torch.Tensor, *, remat: bool = True
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -112,13 +165,11 @@ def forward_train(params, cfg, x_embeds: torch.Tensor,
     ``torch.utils.checkpoint``, which keeps only its input and reruns its
     forward in the backward pass (the reference's ``jax.checkpoint``).  The
     aux loss is the MoE layers' sum (0 for a dense model)."""
-    if cfg.shard_activations_seq:
-        raise NotImplementedError(
-            "shard_activations_seq: the port has no sharding yet")
-    x = x_embeds
+    x = _seq_shard(cfg, x_embeds)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for bp in params["blocks"]:
         x, a = layers.remat_call(remat, _block_train, cfg, x, positions, bp)
+        x = _seq_shard(cfg, x)
         aux = aux + a
     return layers.rms_norm(x, params["final_norm"], cfg.rms_norm_eps), aux
 

@@ -32,7 +32,8 @@ COPIES = ["configs/base.py", "configs/granite_3_2b.py",
           "sim/profiles.py", "sim/simulator.py", "configs/qwen1_5_32b.py",
           "configs/deepseek_67b.py", "configs/qwen3_moe_30b_a3b.py",
           "configs/dbrx_132b.py", "configs/llava_next_34b.py",
-          "configs/zamba2_1_2b.py", "configs/whisper_medium.py"]
+          "configs/zamba2_1_2b.py", "configs/whisper_medium.py",
+          "configs/registry.py"]
 
 
 def _rewrite(src: str) -> str:

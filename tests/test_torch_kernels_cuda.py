@@ -776,3 +776,51 @@ def _to(x, device):
     if isinstance(x, dict):
         return {k: _to(v, device) for k, v in x.items()}
     return x.to(device)
+
+
+def test_shard_registry_on_a_one_device_nccl_mesh(dev):
+    """``serve.shard_registry`` on the card: every leaf placed on a
+    one-device mesh (a one-rank ``nccl`` group) as ``spec_for`` gives it,
+    and the page-pool engine's tokens with the placed params equal those
+    without, bit for bit (bf16, reduced granite-3-2b)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.request import Request
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
+
+    model = build_model(get_arch("granite-3-2b").reduced())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = model.init(gen, torch.bfloat16, dev)
+    registry = {"g": (model, params)}
+    mesh_lib.release()
+    try:
+        mesh = mesh_lib.make_local_mesh(dev)
+        placed = serve.placed_registry(registry, mesh)["g"][1]
+        want = sh.build_shardings(mesh, params, model.param_axes(),
+                                  sh.ShardingRules.default())
+        sh.map_leaves(lambda path, d, pl: (
+            d.placements == tuple(pl) and d.to_local().is_cuda)
+            or pytest.fail(path), placed, want)
+    finally:
+        mesh_lib.release()
+    sharded = serve.shard_registry(registry)["g"][1]
+
+    def tokens(p):
+        eng = ContinuousBatchingEngine(model, p, EngineConfig(
+            max_slots=4, max_seq_len=64, dtype=torch.bfloat16),
+            model_name="m")
+        rng = np.random.default_rng(1)
+        reqs = [Request(prompt_tokens=rng.integers(0, 100, n).tolist(),
+                        model="m", slo=1e9, max_new_tokens=8)
+                for n in (5, 12, 3, 9)]
+        for r in reqs:
+            assert eng.admit(r)
+        while not all(r.finished() for r in reqs):
+            eng.steps()
+        return [r.output_tokens for r in reqs]
+
+    assert tokens(sharded) == tokens(params)
