@@ -26,6 +26,16 @@ Phases, in order; any failure exits non-zero before the result lines:
      instances among them), every flash kernel a ``flash_mma_kernel`` and
      every SSD kernel an ``ssd_mma_kernel``, each with tensor-core
      instructions and no spill bytes;
+  2b. lint phase (``lint_phase``): the port's lint
+     (``repro_torch.analysis.lint``) over ``src/repro_torch`` with
+     ``qlint_baseline.json`` must give 0 findings, and its
+     ``--self-test`` must pass; then a probe of its blocking-upload rule:
+     with ~50 ms of bf16 products queued, a blocking ``torch.tensor(a,
+     device="cuda")``, the same copy from pinned memory with
+     ``non_blocking=True`` and the engine's ``_to_device``, each timed on
+     the host clock and printed; the run fails if the rule flags blocking
+     uploads and they did not wait (or the reverse), or if a pinned
+     non-blocking copy waited;
   3. kernel phase: the six serving kernels (paged decode, paged prefill,
      dense decode, each in float and int8-KV form) against their plain
      PyTorch versions on the card, in float32 and bfloat16, at granite-3-2b's
@@ -265,7 +275,18 @@ Phases, in order; any failure exits non-zero before the result lines:
      dense decode kernel, 40 launches; the flash kernel, 80): argument
      bytes equal exactly; the two peaks (and ``[train]``'s granite peak)
      printed side by side, not gated (the plain versions' temporaries are
-     not the kernels').
+     not the kernels'); beside each, the roofline's three terms of its 1
+     x 1 record (``launch/roofline.py``, H100 constants) and the card's
+     time (the decode step as CUDA-graph replays, the train step as a
+     warm step on the host clock), with card / bound: the card's time
+     must be at least the compute term and the record's bytes accessed
+     at least its argument bytes (the memory ratio is not gated: the
+     count is unfused);
+ 13. hillclimb phase (``hillclimb_phase``): ``launch/hillclimb.py``'s
+     granite-decode target on the fake 16 x 16 mesh, its records
+     written to an empty directory, both report lines (``pet``,
+     ``kvquant8``) printed: predictions; the roofline's ``HBM_BYTES`` must
+     not exceed the card's memory.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -277,12 +298,15 @@ import contextlib
 import dataclasses
 import gc
 import importlib
+import io
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -3731,13 +3755,17 @@ def dryrun_phase(train_peak: int) -> dict:
                              "cuda")
     want = dict.fromkeys(KERNELS, 0)
     want["decode_attention"] = cfg.num_layers
+    decode_args = (params, cache, data["tokens"], data["lengths"])
     with torch.no_grad():
         got = _card_step("decode 8 x 32768 bf16", decode, model.decode_step,
-                         (params, cache, data["tokens"], data["lengths"]),
-                         want)
+                         decode_args, want)
+        card_ms = time_ms(lambda: model.decode_step(*decode_args), iters=5,
+                          replays=4)
+    roofline_check("decode 8 x 32768 bf16", decode, card_ms,
+                   "device, CUDA-graph replays")
     for k, n in got.items():
         total[k] += n
-    del params, cache, data
+    del params, cache, data, decode_args
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3750,9 +3778,15 @@ def dryrun_phase(train_peak: int) -> dict:
                               "cuda")
     want = dict.fromkeys(KERNELS, 0)
     want["flash_attention"] = cfg.num_layers * 2
-    got = _card_step("train 2 x 512 f32", train,
-                     make_train_step(tmodel, opt, remat=True),
+    step = make_train_step(tmodel, opt, remat=True)
+    got = _card_step("train 2 x 512 f32", train, step,
                      (params, state, batch), want)
+    t0 = time.monotonic()
+    step(params, state, batch)
+    torch.cuda.synchronize()
+    roofline_check("train 2 x 512 f32", train,
+                   (time.monotonic() - t0) * 1e3,
+                   "a warm step on the host clock")
     log(f"  [dryrun] [train]'s granite peak (3 steps, with what earlier "
         f"phases left allocated): {train_peak / 2**30:.3f} GiB")
     for k, n in got.items():
@@ -3761,6 +3795,156 @@ def dryrun_phase(train_peak: int) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return total
+
+
+def roofline_check(label, rec, card_ms: float, how: str) -> None:
+    """The roofline's three terms of the 1 x 1 dry-run record ``rec``
+    (``launch/roofline.py``, raw terms, H100 constants) beside the card's
+    time of the same step.  Fails if the card beat the compute term (no
+    card beats its peak) or the record reads fewer bytes than its
+    arguments; the memory ratio is not gated (the byte count is
+    unfused, an upper estimate)."""
+    from repro_torch.launch import roofline
+    a = roofline.analyze(rec, correct=False)
+    bound_ms = a["bound_s"] * 1e3
+    log(f"  [hillclimb] {label} (1 x 1 record, predictions): compute "
+        f"{a['compute_s'] * 1e3:.4f} ms, memory {a['memory_s'] * 1e3:.4f} "
+        f"ms ({rec['cost']['bytes_accessed_per_device']:.6g} B), "
+        f"collective {a['collective_s'] * 1e3:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({a['dominant']}); card {card_ms:.4f} ms "
+        f"({how}); card / bound {card_ms / bound_ms:.3f}, card / compute "
+        f"{card_ms / (a['compute_s'] * 1e3):.3f}")
+    check(card_ms >= a["compute_s"] * 1e3,
+          f"{label}: the card's {card_ms} ms beat the compute term")
+    check(rec["cost"]["bytes_accessed_per_device"]
+          >= rec["memory"]["argument_bytes_per_device"],
+          f"{label}: bytes accessed below the argument bytes")
+
+
+def hillclimb_phase() -> None:
+    """``launch/hillclimb.py --target granite-decode`` on the fake 16 x 16
+    mesh, its records written to an empty directory (no earlier run's
+    cached record is read); both report lines printed; and the
+    roofline's HBM size within the card's."""
+    from repro_torch.launch import dryrun, hillclimb, roofline
+    from repro_torch.launch import mesh as mesh_lib
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"  [hillclimb] roofline HBM_BYTES {roofline.HBM_BYTES:.6g} B, "
+        f"the card's total_memory {total} B")
+    check(roofline.HBM_BYTES <= total, "HBM_BYTES exceeds the card's memory")
+    out = ROOT / "build" / "hillclimb"
+    shutil.rmtree(out, ignore_errors=True)
+    saved = dryrun.OUT_DIR
+    dryrun.OUT_DIR = out
+    mesh_lib.release()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            hillclimb.run(["granite-decode"])
+    finally:
+        dryrun.OUT_DIR = saved
+        mesh_lib.release()
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"  [hillclimb] {line.strip()}"
+            + (" (prediction)" if "tag=" in line else ""))
+    reports = [line for line in lines if line.lstrip().startswith("tag=")]
+    check([line.split()[0] for line in reports]
+          == ["tag=pet", "tag=kvquant8"]
+          and not any("cached" in line for line in reports),
+          f"hillclimb granite-decode: {lines}")
+    check(sorted(p.name for p in out.iterdir()) == [
+        "granite-3-2b__decode_32k__pod16x16__kvquant8.json",
+        "granite-3-2b__decode_32k__pod16x16__pet.json"],
+        f"hillclimb records: {list(out.iterdir())}")
+    shutil.rmtree(out)
+
+
+# a round's hot path with a blocking upload, for the probe
+_UPLOAD_FIXTURE = """
+import torch
+
+
+class Engine:
+    def _decode_round(self, a):
+        return torch.tensor(a, device="cuda")
+"""
+
+
+def lint_phase() -> None:
+    """The port's lint over ``src/repro_torch`` with the baseline (0
+    findings) and its self-test; then the probe of its blocking-upload
+    rule: with ~50 ms of work queued, a blocking ``torch.tensor(a,
+    device="cuda")`` on the host clock, the same copy from pinned memory
+    with ``non_blocking=True``, and the engine's ``_to_device``.  Fails
+    if the rule flags blocking uploads and they did not wait, or the
+    reverse, or if the pinned copies waited."""
+    from repro_torch.analysis import lint
+    from repro_torch.serving.engine import ContinuousBatchingEngine
+
+    src = str(ROOT / "src" / "repro_torch")
+    check(lint.main([src, "--baseline", str(ROOT / "qlint_baseline.json")])
+          == 0, "the port's lint has findings")
+    check(lint.main([src, "--self-test"]) == 0, "the lint's self-test failed")
+    fixture = ROOT / "build" / "lint_probe" / "engine.py"
+    fixture.parent.mkdir(parents=True, exist_ok=True)
+    fixture.write_text(_UPLOAD_FIXTURE)
+    flagged = any("host->device" in f.message
+                  for f in lint.lint_file(str(fixture)))
+    shutil.rmtree(fixture.parent)
+
+    a = torch.randn(8192, 8192, device="cuda", dtype=torch.bfloat16)
+    for _ in range(3):
+        a @ a
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(10):
+        a @ a
+    end.record()
+    torch.cuda.synchronize()
+    n = max(1, int(np.ceil(50.0 / (start.elapsed_time(end) / 10))))
+    host = np.arange(8 * 2048, dtype=np.int32)  # a block table's size
+    pinned = torch.from_numpy(host).pin_memory()
+    engine = SimpleNamespace(device=torch.device("cuda"))
+
+    def queued_ms(upload) -> tuple:
+        upload()                                # warm the host allocator
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(n):
+            a @ a
+        t0 = time.perf_counter()
+        out = upload()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        check(np.array_equal(out.cpu().numpy(), host), "probe copy differs")
+        return host_ms, start.elapsed_time(end)
+
+    times = {
+        "blocking torch.tensor(a, device='cuda')":
+            queued_ms(lambda: torch.tensor(host, device="cuda")),
+        "pinned .to('cuda', non_blocking=True)":
+            queued_ms(lambda: pinned.to("cuda", non_blocking=True)),
+        "the engine's _to_device":
+            queued_ms(lambda: ContinuousBatchingEngine._to_device(engine,
+                                                                  host)),
+    }
+    waited = {k: host_ms > 0.5 * work for k, (host_ms, work) in times.items()}
+    for k, (host_ms, work) in times.items():
+        log(f"  [lint] probe: {k}: {host_ms:.3f} ms on the host with "
+            f"{work:.3f} ms of work queued ({n} bf16 8192^3 products); "
+            f"waited {waited[k]}")
+    blocking, *repaired = waited.values()
+    log(f"  [lint] the rule flags blocking uploads: {flagged}; they "
+        f"waited: {blocking}")
+    check(flagged == blocking, "the blocking-upload rule disagrees with "
+                               "the probe")
+    check(not any(repaired), "a pinned non_blocking upload waited")
+    del a
+    torch.cuda.empty_cache()
 
 
 def decode_timings(src: Path) -> int:
@@ -3957,6 +4141,11 @@ def main() -> int:
         f"{time.monotonic() - t0:.1f} s")
     kernel_resources()
 
+    log("[lint] the port's lint over src/repro_torch; blocking-upload probe")
+    t0 = time.monotonic()
+    lint_phase()
+    log(f"[lint] ok in {time.monotonic() - t0:.1f} s")
+
     t0 = time.monotonic()
     models = {}
     for seed, name in enumerate((GRANITE, DANUBE)):
@@ -4103,6 +4292,11 @@ def main() -> int:
     for k, n in dryrun_phase(train_peaks[GRANITE]).items():
         launches[k] = launches.get(k, 0) + n
     log(f"[dryrun] ok in {time.monotonic() - t0:.1f} s")
+
+    log("[hillclimb] granite-decode on the fake 16 x 16 mesh")
+    t0 = time.monotonic()
+    hillclimb_phase()
+    log(f"[hillclimb] ok in {time.monotonic() - t0:.1f} s")
     log(f"[total] {time.monotonic() - t_run:.1f} s")
 
     kernels = [{

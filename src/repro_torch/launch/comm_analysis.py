@@ -22,6 +22,16 @@ device runs:
   count, as the reference's ``cost_analysis()`` gives it.  (torch's
   ``FlopCounterMode`` entered above DTensor counts each global op, the
   work of the whole mesh.)
+* the bytes every other local op accesses (``op_bytes``): its tensor
+  operands read plus its tensor results written, an in-place op's
+  destination once as read and once as written; a view or metadata op
+  (``func.is_view``, an op whose every result aliases an input's storage
+  without a write, an ``empty`` allocation) counts zero, and a
+  collective's bytes stay in its own count.  This is an unfused count,
+  one term per aten op: where XLA's ``bytes accessed`` is taken after
+  fusion (an elementwise chain reads its input once), here each op of
+  the chain reads and writes its whole operands, so the count is an
+  upper estimate beside the reference's.
 
 ``ReplicateFallback`` is the other half of running a model on DTensors:
 where DTensor has no sharding strategy for an op on the placements it
@@ -84,15 +94,40 @@ def _nbytes(out) -> int:
     return 0
 
 
+_ATEN = torch.ops.aten
+# allocations that write nothing
+_NO_WRITE = {_ATEN.empty, _ATEN.empty_like, _ATEN.empty_strided,
+             _ATEN.new_empty, _ATEN.new_empty_strided}
+
+
+def op_bytes(func, args, kwargs, out) -> int:
+    """Bytes one local op accesses: its tensor operands read plus its
+    tensor results written (``out=`` arguments as written only); zero for
+    a view or metadata op (see the module docstring)."""
+    if func.is_view or func._overloadpacket in _NO_WRITE:
+        return 0
+    out_args = {a.name for a in func._schema.arguments if a.is_out}
+    outs = [t for t in _leaves(out) if isinstance(t, torch.Tensor)]
+    ins = [t for t in _leaves([*args, *(v for k, v in kwargs.items()
+                                        if k not in out_args)])
+           if isinstance(t, torch.Tensor)]
+    if not func._schema.is_mutable and outs:
+        storages = {t.untyped_storage()._cdata for t in ins}
+        if all(t.untyped_storage()._cdata in storages for t in outs):
+            return 0        # _unsafe_view and its kind: a view in effect
+    return _nbytes(ins) + _nbytes(outs)
+
+
 class DeviceCounter(TorchDispatchMode):
-    """Collective bytes and counts, and flops, of the ops one device runs
-    inside the ``with`` block."""
+    """Collective bytes and counts, flops and bytes accessed, of the ops
+    one device runs inside the ``with`` block."""
 
     def __init__(self) -> None:
         super().__init__()
         self.bytes_by_op: Dict[str, int] = defaultdict(int)
         self.count_by_op: Dict[str, int] = defaultdict(int)
         self.flops = 0
+        self.bytes_accessed = 0
         self._fake_mode = None
 
     def __enter__(self):
@@ -113,7 +148,9 @@ class DeviceCounter(TorchDispatchMode):
         if name is not None:
             self.bytes_by_op[name] += _nbytes(out)
             self.count_by_op[name] += 1
-        elif packet in flop_registry:
+            return out
+        self.bytes_accessed += op_bytes(func, args, kwargs, out)
+        if packet in flop_registry:
             self.flops += flop_registry[packet](*args, **kwargs, out_val=out)
         return out
 

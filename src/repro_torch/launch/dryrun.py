@@ -23,15 +23,16 @@ The record holds
     peak of live local bytes from ``torch.distributed._tools.
     mem_tracker.MemTracker`` (``temp`` is what the peak holds beyond
     arguments and new outputs);
-  * flops per device and the collectives' bytes and counts
-    (``launch/comm_analysis.py``);
+  * flops and bytes accessed per device, and the collectives' bytes
+    and counts (``launch/comm_analysis.py``; the bytes are an unfused
+    count, one term per aten op, so an upper estimate beside XLA's);
 
 in ``experiments/dryrun_torch/<arch>__<shape>__<mesh>.json``, with the
 reference's keys but two: ``trace_s`` replaces ``lower_s`` and
-``compile_s`` (there is no compile), and ``bytes_accessed_per_device``
-and ``transcendentals`` are null (torch counts neither).  ``fallback_ops``
-is the port's own: the ops that ran replicated (below).  A record is a
-prediction of the step's footprint on that mesh, not a measurement.
+``compile_s`` (there is no compile), and ``transcendentals`` is null
+(torch does not count them).  ``fallback_ops`` is the port's own: the
+ops that ran replicated (below).  A record is a prediction of the
+step's footprint on that mesh, not a measurement.
 
 The step runs the kernels' plain versions: a kernel reads its inputs
 through their data pointers, and a meta tensor has none
@@ -251,7 +252,7 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
         },
         "cost": {
             "flops_per_device": float(counter.flops),
-            "bytes_accessed_per_device": None,
+            "bytes_accessed_per_device": float(counter.bytes_accessed),
             "transcendentals": None,
         },
         "collectives": counter.collectives().to_dict(),

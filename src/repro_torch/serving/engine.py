@@ -309,11 +309,22 @@ class ContinuousBatchingEngine:
         """Wait for the device (all of it, other engines' work included):
         ends every timed region."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.synchronize(self.device)  # qlint: disable=host-sync-in-hot-path -- documented timed-region sync: one per chunk round, decode round and burst (and single-shot admission), feeds prefill_time / decode_time / RWT calibration
 
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        # torch.tensor copies: the host array may change after the call
-        return torch.tensor(a, device=self.device)
+    def _to_device(self, a, dtype: Optional[torch.dtype] = None
+                   ) -> torch.Tensor:
+        """A copy of host data ``a`` (an array, a list, a CPU tensor) on
+        the engine's device; the host data may change after the call.  On
+        a card the copy goes through pinned memory with
+        ``non_blocking=True``: a blocking upload (``torch.tensor(a,
+        device=...)``, ``.to(device)``) waits for all the work queued on
+        the stream, where the reference's ``jnp.asarray`` does not."""
+        if self.device.type != "cuda":
+            return torch.as_tensor(a, dtype=dtype).clone()
+        host = torch.as_tensor(a, dtype=dtype)
+        if host.device.type == "cpu":
+            host = host.pin_memory()
+        return host.to(self.device, non_blocking=True)
 
     # ------------------------------------------------------------------
     # block tables
@@ -367,14 +378,15 @@ class ContinuousBatchingEngine:
         """Dense eviction snapshot: slot ``b`` of every leaf, copied to CPU
         tensors in the cache's own (nested) structure (a copy on the CPU
         too: the slot is rewritten while the snapshot waits)."""
+        # qlint: disable=host-sync-in-hot-path -- intended device->host copy: the eviction snapshot must leave the pool
         return _map_tree(lambda name, leaf: leaf[
             self._slot_index(name, leaf, b)].to("cpu", copy=True),
             self.cache)
 
     def _restore_cache(self, snapshot: Dict[str, Any], b: int) -> None:
         def put(name, leaf, snap):
-            leaf[self._slot_index(name, leaf, b)] = snap.to(self.device,
-                                                            leaf.dtype)
+            leaf[self._slot_index(name, leaf, b)] = self._to_device(
+                snap, leaf.dtype)
         _map_tree(put, self.cache, snapshot)
 
     def _insert_cache(self, slot_cache: Dict[str, Any], b: int) -> None:
@@ -393,18 +405,17 @@ class ContinuousBatchingEngine:
         compile."""
         cache1 = self.model.init_cache(1, self.cfg.max_seq_len,
                                        self.cfg.dtype, self.device)
-        batch = {"tokens": torch.tensor(prompt, dtype=torch.int32,
-                                        device=self.device)[None]}
-        batch.update({k: torch.as_tensor(v).to(self.device,
-                                                self.cfg.dtype)[None]
+        batch = {"tokens": self._to_device(prompt, torch.int32)[None]}
+        batch.update({k: self._to_device(v, self.cfg.dtype)[None]
                       for k, v in extras.items()})
         logits, cache1 = self.model.prefill(self.params, batch, cache1)
-        return int(torch.argmax(logits[0], dim=-1)), cache1
+        return int(torch.argmax(logits[0], dim=-1)), cache1  # qlint: disable=host-sync-in-hot-path -- the one-shot prefill's single device->host result copy (its first token)
 
     def _extract_pages(self, block_ids: List[int]) -> Dict[str, torch.Tensor]:
         """Eviction snapshot: copy ONLY the given pages (axis 1 of each
         (layers, num_blocks + 1, ...) pool) to host memory, as CPU tensors."""
-        ids = torch.tensor(block_ids, dtype=torch.long, device=self.device)
+        ids = self._to_device(block_ids, torch.long)
+        # qlint: disable=host-sync-in-hot-path -- intended device->host copy: paged eviction snapshot leaves the pool
         return {name: pool[:, ids].cpu() for name, pool in self.cache.items()}
 
     def _restore_pages(self, snapshot: Dict[str, torch.Tensor],
@@ -415,10 +426,9 @@ class ContinuousBatchingEngine:
         n_snap = snapshot["k"].shape[1]
         assert len(block_ids) - offset >= n_snap, \
             (len(block_ids), offset, n_snap)
-        ids = torch.tensor(block_ids[offset:offset + n_snap], dtype=torch.long,
-                           device=self.device)
+        ids = self._to_device(block_ids[offset:offset + n_snap], torch.long)
         for name, pool in self.cache.items():
-            pool[:, ids] = snapshot[name].to(self.device, pool.dtype)
+            pool[:, ids] = self._to_device(snapshot[name], pool.dtype)
 
     def _apply_cow(self) -> None:
         """Apply pending copy-on-write page copies (BlockManager re-pointed
@@ -430,10 +440,8 @@ class ContinuousBatchingEngine:
         ops = self.block_mgr.take_cow_ops()
         if not ops:
             return
-        src = torch.tensor([s for s, _ in ops], dtype=torch.long,
-                           device=self.device)
-        dst = torch.tensor([d for _, d in ops], dtype=torch.long,
-                           device=self.device)
+        src = self._to_device([s for s, _ in ops], torch.long)
+        dst = self._to_device([d for _, d in ops], torch.long)
         for pool in self.cache.values():
             pool[:, dst] = pool[:, src]
         self.stats.cow_copies += len(ops)
@@ -953,7 +961,7 @@ class ContinuousBatchingEngine:
             logits, self.cache = self.model.prefill_chunk(
                 self.params, self.cache, self._to_device(tokens),
                 self._to_device(starts), self._to_device(valid))
-        toks_out = torch.argmax(logits, dim=-1).cpu().numpy()
+        toks_out = torch.argmax(logits, dim=-1).cpu().numpy()  # qlint: disable=host-sync-in-hot-path -- the round's single device->host result copy, inside the timed region
         self._sync()  # the cache writes too: prefill_time feeds the RWT
         self.stats.prefill_chunks += 1
         now = self.clock()
@@ -1004,7 +1012,7 @@ class ContinuousBatchingEngine:
         self._apply_cow()
         logits = self._decode_step(self._to_device(self._last_tokens(active)),
                                    self._to_device(self.lengths))
-        next_tokens = torch.argmax(logits, dim=-1).cpu().numpy()
+        next_tokens = torch.argmax(logits, dim=-1).cpu().numpy()  # qlint: disable=host-sync-in-hot-path -- the round's single device->host result copy, inside the timed region
         self._sync()
         self.stats.decode_iterations += 1
         self.stats.decode_time += self._wall() - t0
@@ -1124,7 +1132,7 @@ class ContinuousBatchingEngine:
             n, self._to_device(self._last_tokens(active)),
             self._to_device(self.lengths), self._to_device(remaining),
             self._to_device(active_mask))
-        out = out.cpu().numpy()
+        out = out.cpu().numpy()  # qlint: disable=host-sync-in-hot-path -- the burst's single device->host result copy, inside the timed region
         self._sync()
         executed = int((out >= 0).any(axis=1).sum())
         self.stats.decode_iterations += executed

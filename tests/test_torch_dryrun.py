@@ -246,7 +246,9 @@ def test_run_one_on_reduced_models(dims):
             assert mem["peak_bytes_per_device"] >= \
                 mem["argument_bytes_per_device"]
             assert rec["cost"]["flops_per_device"] > 0
-            assert rec["cost"]["bytes_accessed_per_device"] is None
+            # every argument is read at least once
+            assert rec["cost"]["bytes_accessed_per_device"] >= \
+                mem["argument_bytes_per_device"]
             assert set(rec["collectives"]["bytes_by_op"]) <= \
                 set(COLLECTIVE_OPS)
             if arch == "zamba2-1.2b":        # 32 slots + the sink

@@ -1,8 +1,9 @@
 """The port stands alone: no module of ``repro_torch`` and not
-``chip_smoke.py`` imports JAX or the reference package; the plain-Python
-modules it copies stay equal to their reference sources (after the import
-rewrite and the rewordings listed in ``REWORDED``); and its entry
-points refuse to fall back to the CPU when CUDA is missing."""
+``chip_smoke.py`` imports JAX, the reference package or its
+``benchmarks``; the plain-Python modules it copies stay equal to their
+reference sources (after the import rewrite and the rewordings listed in
+``REWORDED``); and its entry points refuse to fall back to the CPU when
+CUDA is missing."""
 import ast
 import os
 import pathlib
@@ -66,7 +67,7 @@ def _imported_roots(path: pathlib.Path):
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_import_of_jax_or_the_reference(path):
     roots = set(_imported_roots(path))
-    assert not roots & {"jax", "jaxlib", "repro"}, roots
+    assert not roots & {"jax", "jaxlib", "repro", "benchmarks"}, roots
 
 
 def test_importing_every_module_loads_no_jax():
@@ -77,7 +78,7 @@ def test_importing_every_module_loads_no_jax():
     code = ("import sys, importlib\n"
             f"for m in {modules!r}: importlib.import_module(m.rstrip('.'))\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro'))\n"
+            "('jax', 'jaxlib', 'repro', 'benchmarks'))\n"
             "print(len(sys.modules)); assert not bad, bad\n")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     out = subprocess.run([sys.executable, "-c", code], env=env,
