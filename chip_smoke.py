@@ -44,7 +44,7 @@ Phases, in order; any failure exits non-zero before the result lines:
      edges/the full slot, prefill chunks that start past a page edge,
      ``valid == 0`` rows, chunks of 128 and 512, long context (lengths up
      to 4096), and the serve phases' own shapes (8 slots, the page pool and
-     table or the 128-slot dense cache plus its sink column, 16- and
+     table or the 128-column dense cache, 16- and
      32-token chunk buckets with free slots among live rows).  Every case
      that disagrees is a failure.  Then time kernel, plain version and the
      library call (``scaled_dot_product_attention`` over the gathered or
@@ -268,7 +268,11 @@ Phases, in order; any failure exits non-zero before the result lines:
      no other kernel; attainment, TTFTs, swaps and swap time printed;
  12. dry-run phase (``dryrun_phase``): ``launch/dryrun.py`` on the fake
      16 x 16 mesh for ``DRYRUN_PAIRS`` (per-device peak, flops, collective
-     bytes and trace time printed: predictions, not measurements); then
+     bytes, dropped shardings, fallbacks with their collective bytes and
+     trace time printed: predictions, not measurements); granite
+     decode_32k and zamba2 long_500k must shard their caches' ``kv_seq``
+     and run the dense cache write with no fallback
+     (``check_sharding``); then
      on a 1 x 1 fake mesh granite-3-2b's decode step at 8 x 32768 (bf16)
      and its train step at 2 x 512 (f32, AdamW, remat, the flash kernel's
      config), each beside the same step run for real on the card (the
@@ -285,8 +289,9 @@ Phases, in order; any failure exits non-zero before the result lines:
  13. hillclimb phase (``hillclimb_phase``): ``launch/hillclimb.py``'s
      granite-decode target on the fake 16 x 16 mesh, its records
      written to an empty directory, both report lines (``pet``,
-     ``kvquant8``) printed: predictions; the roofline's ``HBM_BYTES`` must
-     not exceed the card's memory.
+     ``kvquant8``) printed: predictions, each record held to
+     ``check_sharding`` as granite's in the dry-run phase; the roofline's
+     ``HBM_BYTES`` must not exceed the card's memory.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -782,7 +787,7 @@ def kernel_phase(shapes: dict):
     rng = np.random.default_rng(0)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    B, nb, N, bs, S1 = (shapes[k] for k in ("B", "nb", "N", "bs", "S1"))
+    B, nb, N, bs, S = (shapes[k] for k in ("B", "nb", "N", "bs", "S"))
     serving = dict(nb=nb, N=N)
     failures = []
     decode_cases = {
@@ -813,8 +818,8 @@ def kernel_phase(shapes: dict):
         "edges S=129": dict(lengths=[1, 0, 129, 64, 2, 33, 128, 17], S=129),
         "long S=4096": dict(lengths=[4096, 1, 2049, 0], S=4096),
         "head_dim 80": dict(lengths=[1, 65, 0, 40], S=65, D=80),
-        f"serving B={B} S={S1}": dict(
-            lengths=[5, 40, 1, 0, 17, 33, 0, 16][:B], S=S1),
+        f"serving B={B} S={S}": dict(
+            lengths=[5, 40, 1, 0, 17, 33, 0, 16][:B], S=S),
     }
     for dtype in (torch.float32, torch.bfloat16):
         for quant in (False, True):
@@ -904,7 +909,7 @@ def kernel_phase(shapes: dict):
               work["flops"], library)
 
     for quant in (False, True):
-        args = dense_case(rng, gen, dtype, lengths.tolist(), S1, quant)
+        args = dense_case(rng, gen, dtype, lengths.tolist(), S, quant)
         if quant:
             log("  decode_attention_quant: no single PyTorch call; "
                 "dequantize, then SDPA: " + json.dumps({"two_call_ms": time_ms(
@@ -919,7 +924,7 @@ def kernel_phase(shapes: dict):
     log(f"  timed at serving shapes, bf16: H={H} KVH={KVH} D={D}; paged "
         f"decode B={B} bs={bs} nb={nb} N={N} live tokens={live}; prefill "
         f"C={C} valid rows={int((valid > 0).sum())} query tokens={n_q}; "
-        f"dense decode B={B} S={S1} live tokens={live}")
+        f"dense decode B={B} S={S} live tokens={live}")
     long_context(rng, gen, failures)
     flash_phase(gen, failures, records)
     ssd_phase(gen, failures, records)
@@ -1321,13 +1326,13 @@ def ssd_training_shapes(gen, failures) -> None:
 def serving_shapes() -> dict:
     """The attention shapes the serve phases give the kernels: every slot
     in each call, the engine's page pool and block table (paged), the
-    cache's slots plus the sink column (dense), and the chunk bucket
-    covering the workload's longest prompt (23 tokens)."""
+    cache's ``max_seq_len`` columns (dense), and the chunk bucket covering
+    the workload's longest prompt (23 tokens)."""
     from repro_torch.launch import serve
     ecfg = serve.engine_config(SERVE_ARGS, torch.bfloat16)
     return {"B": ecfg.max_slots, "bs": ecfg.block_size,
             "nb": ecfg.max_blocks_per_seq(), "N": ecfg.resolved_kv_blocks(),
-            "S1": ecfg.max_seq_len + 1,
+            "S": ecfg.max_seq_len,
             "C": next(b for b in ecfg.resolved_buckets() if b >= 23)}
 
 
@@ -1438,8 +1443,7 @@ def step_timings(registry) -> None:
                 ("prefill chunk round", lambda: model.prefill_chunk_paged(
                     params, cache, chunk, starts, valid, bt)))
         else:
-            cache = model.init_cache(B, shapes["S1"] - 1, torch.bfloat16,
-                                     "cuda")
+            cache = model.init_cache(B, shapes["S"], torch.bfloat16, "cuda")
             steps = (("decode step", lambda: model.decode_step(
                 params, cache, tokens, lengths)),
                 ("prefill chunk round", lambda: model.prefill_chunk(
@@ -2165,15 +2169,15 @@ def dense_family_kernels(cfg, quant: bool, tag: str = "dense-family",
     """The page-pool decode and prefill and the dense decode kernels (their
     int8 twins too when ``quant``) against their plain versions at the
     dense-family runs' shapes: 8 slots, 16-token pages, 8 blocks a
-    sequence, 64 pages, 32-token chunks, the 129-column dense cache (or,
-    with ``dense_lengths``, a cache one column past the longest), the
+    sequence, 64 pages, 32-token chunks, the 128-column dense cache (or,
+    with ``dense_lengths``, a cache as long as the longest), the
     arch's heads and KV heads at head_dim 128, bf16; each timed beside its
     plain version, its bound and (float) SDPA.  The prefill kernels also
     at LONG_CHUNKS, checked only.  Every prefill row is compared, the
     padding rows past valid included."""
     H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     dtype, esize = torch.bfloat16, 2
-    B, nb, N, S1, C = 8, 8, 64, 129, 32
+    B, nb, N, S, C = 8, 8, 64, 128, 32
     rng = np.random.default_rng(5)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
@@ -2183,7 +2187,7 @@ def dense_family_kernels(cfg, quant: bool, tag: str = "dense-family",
     live = sum(lengths)
     d_lengths = dense_lengths or lengths
     if dense_lengths:
-        S1 = max(dense_lengths) + 1
+        S = max(dense_lengths)
     failures = []
     for q8 in (False, True) if quant else (False,):
         sfx = "_quant" if q8 else ""
@@ -2204,7 +2208,7 @@ def dense_family_kernels(cfg, quant: bool, tag: str = "dense-family",
                         table=sum(starts) // 16, ints=2 * B),
              work["flops"]),
             ("decode_attention" + sfx,
-             dense_case(rng, gen, dtype, d_lengths, S1, q8, H=H, KVH=KVH,
+             dense_case(rng, gen, dtype, d_lengths, S, q8, H=H, KVH=KVH,
                         D=D),
              attn_bytes(esize, H=H, KVH=KVH, D=D, q_rows=B,
                         kv_rows=sum(d_lengths), quant=q8, ints=B),
@@ -2212,7 +2216,7 @@ def dense_family_kernels(cfg, quant: bool, tag: str = "dense-family",
         for name, args, nbytes, flops in cases:
             case = f"{cfg.name} H{H} KVH{KVH} D{D}"
             if name.startswith("decode_attention"):
-                case += f" S{S1}"
+                case += f" S{S}"
             err = check_case(failures, name, dtype, case, args)
             fn, plain = kernel_fns(name)
             b, by = bound(nbytes, flops, dtype)
@@ -2225,7 +2229,7 @@ def dense_family_kernels(cfg, quant: bool, tag: str = "dense-family",
                 rec["library_ms"] = time_ms(prefill_library(args, dtype))
             log(f"  [{tag}] {name} at {cfg.name}'s shapes (group "
                 f"{H // KVH}, D {D}"
-                f"{f', S {S1}' if name.startswith('decode_attention') else ''}"
+                f"{f', S {S}' if name.startswith('decode_attention') else ''}"
                 f"): " + json.dumps(rec))
         for lc, l_starts, l_valid in LONG_CHUNKS:
             args = prefill_case(rng, gen, dtype, l_starts, l_valid, lc, q8,
@@ -2694,9 +2698,9 @@ def _param_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in _leaves(tree))
 
 
-def hybrid_encdec_kernels(tag, cfg, lengths, S1, ssd_lengths=()) -> None:
+def hybrid_encdec_kernels(tag, cfg, lengths, S, ssd_lengths=()) -> None:
     """The dense decode kernel and its int8 twin at the run's shape (8
-    slots, group 1, head_dim 64, a cache of ``S1`` columns, the run's
+    slots, group 1, head_dim 64, a cache of ``S`` columns, the run's
     kv lengths) and, for the hybrid, the SSD scan at its single-shot
     prefill's shape (1, L, 64 heads of 64, N 64, chunk 64, zero state in,
     the final state out) for each padded prompt length in
@@ -2712,10 +2716,10 @@ def hybrid_encdec_kernels(tag, cfg, lengths, S1, ssd_lengths=()) -> None:
     failures = []
     for q8 in (False, True):
         name = "decode_attention" + ("_quant" if q8 else "")
-        args = dense_case(rng, gen, dtype, lengths, S1, q8, H=H, KVH=KVH,
+        args = dense_case(rng, gen, dtype, lengths, S, q8, H=H, KVH=KVH,
                           D=D)
         err = check_case(failures, name, dtype,
-                         f"{cfg.name} H{H} KVH{KVH} D{D} S{S1}", args)
+                         f"{cfg.name} H{H} KVH{KVH} D{D} S{S}", args)
         fn, plain = kernel_fns(name)
         b, by = bound(attn_bytes(esize, H=H, KVH=KVH, D=D, q_rows=len(lengths),
                                  kv_rows=sum(lengths), quant=q8,
@@ -2729,7 +2733,7 @@ def hybrid_encdec_kernels(tag, cfg, lengths, S1, ssd_lengths=()) -> None:
         if q8:
             rec["two_calls_ms"] = time_ms(decode_two_calls(name, args))
         log(f"  [{tag}] {name} at {cfg.name}'s shape (8 slots, group "
-            f"{H // KVH}, D {D}, S {S1}, lengths {list(lengths)}): "
+            f"{H // KVH}, D {D}, S {S}, lengths {list(lengths)}): "
             + json.dumps(rec))
     if cfg.ssm is not None:
         s = cfg.ssm
@@ -3039,7 +3043,7 @@ def hybrid_encdec_phase() -> dict:
                                                  device="cuda")[None],
                           "frame_embeds": extras[0]["frame_embeds"][None]})
         lengths = [len(p) + 8 for p in prompts]
-        hybrid_encdec_kernels(tag, cfg, lengths, max_seq + 1, ssd_lengths)
+        hybrid_encdec_kernels(tag, cfg, lengths, max_seq, ssd_lengths)
         from repro_torch.serving import EngineConfig
         hw = _calibrate(model, params, EngineConfig(
             max_slots=8, max_seq_len=max_seq, attention_backend="cuda",
@@ -3665,8 +3669,42 @@ def _dry_line(rec) -> str:
             f"{mem['peak_bytes_per_device'] / 2**30:.3f} GiB/dev, flops "
             f"{rec['cost']['flops_per_device']:.4g}/dev, collectives "
             f"{coll['bytes_by_op']} B in {coll['count_by_op']}, fallbacks "
-            f"{rec['fallback_ops']}, {len(rec['dropped_shardings'])} axes "
-            f"dropped, trace {rec['trace_s']} s")
+            f"{rec['fallback_ops']} carrying "
+            f"{rec['fallback_collective_bytes']} B, dropped_shardings "
+            f"{rec['dropped_shardings']}, trace {rec['trace_s']} s")
+
+
+# the ops of the dense cache write (models/attention.py::_write_dense),
+# none of which may fall back
+DENSE_WRITE_OPS = ("scatter", "gather", "where", "copy_")
+
+
+def check_sharding(label: str, rec) -> None:
+    """A record with a dense cache must shard its ``kv_seq`` and run the
+    cache write with no fallback."""
+    if rec["shape"] == "train_4k":
+        return
+    fell = [op for op in rec["fallback_ops"]
+            if any(w in op for w in DENSE_WRITE_OPS)]
+    check(not any("kv_seq" in d for d in rec["dropped_shardings"]),
+          f"{label}: kv_seq dropped: {rec['dropped_shardings']}")
+    check(not fell, f"{label}: the dense cache write fell back: {fell}")
+
+
+# the ops of the grouped MoE dispatch's pair axis (models/moe.py::
+# _dispatch_groups, _combine_groups), none of which may fall back; the
+# train step's one index_put is the embedding lookup's gradient
+# (models/layers.py::embed_tokens), not the dispatch's
+DISPATCH_OPS = ("sort", "searchsorted", "scatter", "gather", "cumsum",
+                "repeat_interleave")
+
+
+def check_dispatch(label: str, rec) -> None:
+    """A record of the grouped MoE dispatch must run its pair-axis ops
+    with no fallback."""
+    fell = [op for op in rec["fallback_ops"]
+            if any(w in op for w in DISPATCH_OPS)]
+    check(not fell, f"{label}: the grouped dispatch fell back: {fell}")
 
 
 def _card_step(label, dry, fn, args, want) -> dict:
@@ -3703,11 +3741,12 @@ def _card_step(label, dry, fn, args, want) -> dict:
 
 
 def dryrun_phase(train_peak: int) -> dict:
-    """``launch/dryrun.py`` on the fake production mesh, then granite's
-    decode and train steps on a 1 x 1 fake mesh against the same steps
-    on the card.  Returns the card steps' launches summed."""
+    """``launch/dryrun.py`` on the fake production mesh (with qwen3-moe
+    train_4k's ``g16`` too), then granite's decode and train steps on a
+    1 x 1 fake mesh against the same steps on the card.  Returns the card
+    steps' launches summed."""
     from repro_torch.configs import get_arch
-    from repro_torch.launch import dryrun
+    from repro_torch.launch import dryrun, hillclimb
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.models import build_model
     from repro_torch.models.model_factory import materialize_batch
@@ -3720,10 +3759,19 @@ def dryrun_phase(train_peak: int) -> dict:
             rec = dryrun.run_one(arch, shape, save=False)
             log(f"  [dryrun] {arch} {shape} {rec['mesh']} (prediction): "
                 + _dry_line(rec))
+            check_sharding(f"dry run {arch} {shape}", rec)
             check(rec["applicable"] and rec["cost"]["flops_per_device"] > 0
                   and rec["memory"]["peak_bytes_per_device"]
                   >= rec["memory"]["argument_bytes_per_device"] > 0,
                   f"dry run {arch} {shape}: {rec}")
+        # hillclimb's qwen3-train g16: the dispatch in 16 data-aligned
+        # groups, shard-local under this torch too
+        g16 = next(hillclimb.qwen3_train())
+        rec = dryrun.run_one("qwen3-moe-30b-a3b", "train_4k", save=False,
+                             **g16)
+        log(f"  [dryrun] qwen3-moe-30b-a3b train_4k {rec['mesh']} "
+            f"{rec['tag']} (prediction): " + _dry_line(rec))
+        check_dispatch("dry run qwen3-moe-30b-a3b train_4k g16", rec)
         mesh_lib.release()
         one = mesh_lib.make_debug_mesh(1, 1)
         decode = dryrun.run_one(
@@ -3848,6 +3896,14 @@ def hillclimb_phase() -> None:
     for line in lines:
         log(f"  [hillclimb] {line.strip()}"
             + (" (prediction)" if "tag=" in line else ""))
+    for path in sorted(out.glob("*.json")):
+        rec = json.loads(path.read_text())
+        log(f"  [hillclimb] {rec['tag']}: dropped_shardings "
+            f"{rec['dropped_shardings']}, fallback_ops {rec['fallback_ops']}"
+            f", fallback_collective_bytes "
+            f"{rec['fallback_collective_bytes']} of "
+            f"{rec['collectives']['total_bytes']} collective bytes")
+        check_sharding(f"hillclimb {rec['tag']}", rec)
     reports = [line for line in lines if line.lstrip().startswith("tag=")]
     check([line.split()[0] for line in reports]
           == ["tag=pet", "tag=kvquant8"]
@@ -3972,7 +4028,7 @@ def decode_timings(src: Path) -> int:
     dtype, failures, records = torch.bfloat16, [], {}
     serve_lengths = rng.integers(5, 41, size=shapes["B"]).tolist()
     for label, lengths, nb, S in (
-            ("serving", serve_lengths, shapes["nb"], shapes["S1"]),
+            ("serving", serve_lengths, shapes["nb"], shapes["S"]),
             ("8 x 4096", [4096] * 8, 256, 4096)):
         for name in FLOAT_DECODE + INT8_DECODE:
             quant = name in INT8_DECODE

@@ -40,6 +40,7 @@ import math
 
 import torch
 
+from repro_torch.distributed.local import whole
 from repro_torch.kernels.common import (check_cuda_inputs, decode_plan,
                                        launch, on_cpu, split_buffers)
 
@@ -68,10 +69,12 @@ def dequantize_rows(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            lengths: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the float kernel (same contract), in f32."""
+    """Plain PyTorch version of the float kernel (same contract), in f32.
+    The query heads split into (KV head, group) unsharded (``whole``: on
+    a mesh that splits the heads finer than the KV heads)."""
     B, H, D = q.shape
     KVH, S = k.shape[1], k.shape[2]
-    qg = q.reshape(B, KVH, H // KVH, D).float()
+    qg = whole(q, 1).reshape(B, KVH, H // KVH, D).float()
     s = torch.matmul(qg, k.float().transpose(-1, -2)) / math.sqrt(D)
     live = torch.arange(S, device=q.device)[None, :] \
         < lengths.to(q.device)[:, None]                    # (B, S)

@@ -44,6 +44,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed.local import whole
 from repro_torch.kernels.common import (attention_plan, check_cuda_inputs,
                                        launch, on_cpu)
 from repro_torch.kernels.decode_attention import masked_softmax_attend
@@ -70,10 +71,11 @@ def visible_keys(Lq: int, Lkv: int, causal: bool, window: Optional[int],
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
                           window: Optional[int] = None) -> torch.Tensor:
-    """Plain PyTorch version of the kernel (same contract), in f32."""
+    """Plain PyTorch version of the kernel (same contract), in f32; the
+    heads split unsharded, as ``decode_attention_plain``'s."""
     B, H, Lq, D = q.shape
     KVH, Lkv = k.shape[1], k.shape[2]
-    qg = q.reshape(B, KVH, H // KVH, Lq, D).float()
+    qg = whole(q, 1).reshape(B, KVH, H // KVH, Lq, D).float()
     s = torch.matmul(qg, k[:, :, None].float().transpose(-1, -2)) \
         / math.sqrt(D)                                    # (B,KVH,G,Lq,Lkv)
     mask = visible_keys(Lq, Lkv, causal, window, q.device)

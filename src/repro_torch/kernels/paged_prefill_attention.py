@@ -56,6 +56,7 @@ import math
 
 import torch
 
+from repro_torch.distributed.local import whole
 from repro_torch.kernels.common import (attention_plan, check_cuda_inputs,
                                        launch, on_cpu)
 from repro_torch.kernels.decode_attention import (dequantize_rows,
@@ -99,7 +100,7 @@ def _prefill_plain(q: torch.Tensor, k_prefix: torch.Tensor,
     dev = q.device
     k = torch.cat([k_prefix, chunk_k.float()], dim=2)
     v = torch.cat([v_prefix, chunk_v.float()], dim=2)
-    qg = q.reshape(B, KVH, G, C, D).float()
+    qg = whole(q, 1).reshape(B, KVH, G, C, D).float()   # heads unsharded
     s = torch.matmul(qg, k[:, :, None].transpose(-1, -2)) \
         / math.sqrt(D)                                          # (B,KVH,G,C,S+C)
     starts = starts.to(dev)

@@ -40,13 +40,16 @@ writes no input) where the local op it planned fails, it redistributes
 every DTensor argument of that op, at that call only, to ``Replicate()``
 and runs the op again, as GSPMD's implicit all-gather would; the
 redistribution's collectives are counted like any other.  It records
-which ops fell back, and how often.
+which ops fell back, and how often, and, given the ``DeviceCounter`` below
+it, the collective bytes each op's fallbacks issued
+(``collective_bytes``), so a record can say what share of its
+collectives the fallbacks carry.
 """
 from __future__ import annotations
 
 import dataclasses
 from collections import Counter, defaultdict
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 from torch._guards import active_fake_mode
@@ -178,11 +181,20 @@ def _replicate(x):
 class ReplicateFallback(TorchDispatchMode):
     """Where DTensor cannot shard an op on the placements it got, run it on
     replicated arguments (see the module docstring); ``fallbacks`` counts
-    those ops by name.  Enter it after (above) ``DeviceCounter``."""
+    those ops by name, and ``collective_bytes`` the bytes of the
+    collectives their redistributions issued, read off ``counter`` (none
+    without one).  Enter it after (above) ``DeviceCounter``."""
 
-    def __init__(self) -> None:
+    def __init__(self, counter: Optional[DeviceCounter] = None) -> None:
         super().__init__()
         self.fallbacks: Counter = Counter()
+        self.collective_bytes: Counter = Counter()
+        self._counter = counter
+
+    def _collected(self) -> int:
+        if self._counter is None:
+            return 0
+        return sum(self._counter.bytes_by_op.values())
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -196,7 +208,16 @@ class ReplicateFallback(TorchDispatchMode):
             # DTensor planned failed (a view across a strided shard)
             if func._schema.is_mutable and not _no_strategy(err):
                 raise
-        self.fallbacks[str(func)] += 1
+        name = str(func)
+        self.fallbacks[name] += 1
+        before = self._collected()
+        try:
+            return self._replicated(func, args, kwargs)
+        finally:
+            self.collective_bytes[name] += self._collected() - before
+
+    @staticmethod
+    def _replicated(func, args, kwargs):
         args = _replicate(list(args))
         kwargs = {k: _replicate(v) for k, v in kwargs.items()}
         try:

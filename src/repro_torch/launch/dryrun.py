@@ -30,9 +30,11 @@ The record holds
 in ``experiments/dryrun_torch/<arch>__<shape>__<mesh>.json``, with the
 reference's keys but two: ``trace_s`` replaces ``lower_s`` and
 ``compile_s`` (there is no compile), and ``transcendentals`` is null
-(torch does not count them).  ``fallback_ops`` is the port's own: the
-ops that ran replicated (below).  A record is a prediction of the
-step's footprint on that mesh, not a measurement.
+(torch does not count them).  ``fallback_ops`` and
+``fallback_collective_bytes`` are the port's own: the ops that ran
+replicated (below), and the collective bytes each one's redistributions
+issued.  A record is a prediction of the step's footprint on that mesh,
+not a measurement.
 
 The step runs the kernels' plain versions: a kernel reads its inputs
 through their data pointers, and a meta tensor has none
@@ -45,29 +47,35 @@ Where DTensor has no sharding strategy for an op on the placements it
 gets, ``comm_analysis.ReplicateFallback`` replicates that op's inputs at
 that call only, as GSPMD's implicit all-gather would, and the record
 counts the gather; ``fallback_ops`` lists them.  Which ops fall back
-depends on torch's version.  On the registry's archs these are:
+depends on torch's version.  On the registry's archs the one left is
+``aten.view``: splitting the k/v projections, sharded over "model", into
+KV heads where a shard boundary cuts a head (KV heads x head_dim
+narrower than the "model" axis allows whole heads), gathered before the
+split.  The kernels' plain versions split their query heads after
+gathering only the "model" axis (``distributed/local.py::whole``).
 
-  * ``aten.view``: splitting a projection sharded over "model" into heads
-    where a shard boundary cuts a head (KV heads x head_dim narrower than
-    the "model" axis allows whole heads), gathered before the split;
-  * ``aten.searchsorted`` in the MoE dispatch (``models/moe.py``), which
-    has no strategy at all: the routing runs whole on every device, so a
-    MoE step's dispatch, and the expert work that follows it, is that of
-    the whole batch on each device;
-  * under torch 2.11 also ``aten.scatter_``, the dense cache write: that
-    DTensor shards no scatter, so the record gathers each layer's cache
-    (torch 2.13 shards it along the batch, with no collective).
+Three places were written so that they shard under torch 2.11 and 2.13
+alike, with no fallback:
 
-Two places were written so that DTensor can shard them: the dense cache
-write is a scatter along the slot axis (``models/attention.py::
-_write_dense``; an indexed put over the batch dimension has no sharded
-strategy), and the cross-entropy keeps its gathered gold logits in their
-gathered shape (``models/layers.py::next_token_ce``).
-
-The port's dense cache carries a write-sink column beside its S slots
-(``models/attention.py``): S + 1 columns never divide a power-of-two
-"model" axis, so the rules' divisibility guard drops ``kv_seq`` and the
-cache lands replicated over "model" (``dropped_shardings`` says so).
+  * the dense cache write (``models/attention.py::_write_dense``).  The
+    cache holds the reference's S columns, so ``kv_seq`` shards over
+    "model"; a chunk or decode write is a ``scatter_`` along it, which
+    DTensor does not shard along a split axis (torch 2.13 shards it along
+    the batch only, torch 2.11 not at all).  The
+    write runs on each shard's local columns instead
+    (``distributed/local.py``): a token lands where the shard owns its
+    column, every other write puts back the value its column held,
+    which is how GSPMD partitions the reference's ``.at[...].set(mode=
+    "drop")``, with no collective.  A form over whole columns (a select
+    against a one-hot of all S columns) would read and write the whole
+    cache every step.  The single-shot prefill replaces every column with
+    one ``copy_``, which DTensor takes shard by shard;
+  * the MoE's grouped dispatch (``models/moe.py::_moe_groups``): the
+    sort, ranking, scatter and combine run on each device's own groups,
+    and the ranking counts instead of ``searchsorted``, which has no
+    strategy at all;
+  * the cross-entropy keeps its gathered gold logits in their gathered
+    shape (``models/layers.py::next_token_ce``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-3-2b --shape decode_32k
@@ -226,7 +234,8 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
     tracker.track_external(*[a.to_local() if hasattr(a, "to_local") else a
                              for a in tree_leaves(args)
                              if isinstance(a, torch.Tensor)])
-    counter, fallback = DeviceCounter(), ReplicateFallback()
+    counter = DeviceCounter()
+    fallback = ReplicateFallback(counter)
     t0 = time.monotonic()
     with tracker:
         with counter, fallback, implicit_replication():
@@ -258,6 +267,7 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
         "collectives": counter.collectives().to_dict(),
         "dropped_shardings": sorted(set(rules.dropped)),
         "fallback_ops": dict(fallback.fallbacks),
+        "fallback_collective_bytes": dict(fallback.collective_bytes),
         "model_params": cfg.param_count(),
         "model_active_params": cfg.active_param_count(),
         "tokens_per_step": shape.global_batch * (shape.seq_len

@@ -12,10 +12,10 @@ records bear on reading them:
     kernel), so the int8 variant's plain decode, which dequantizes its
     cache into a float copy, may read more than the float one;
   * ``fallbacks`` counts the ops DTensor could not shard and ran
-    replicated; their gathers set the collective term (the MoE
-    dispatch's ``searchsorted`` always; under torch 2.11 the dense cache
-    write too), so ``dispatch_groups`` cannot make the MoE scatter
-    shard-local here.
+    replicated (``fallback_collective_bytes`` in the record says what
+    their gathers carry); the dense cache write and the grouped MoE
+    dispatch run shard-local, so the collective terms are those of the
+    sharding plan.
 
   PYTHONPATH=src python -m repro_torch.launch.hillclimb --target granite-decode
 """
@@ -99,8 +99,9 @@ def qwen3_train():
     """H2: collective-bound by the MoE scatter's gathers.  Changes:
     g16        — dispatch_groups=16 (data-axis-aligned scatter);
     g16+mb4    — plus microbatching (also shrinks dispatch working set).
-    The port's dispatch falls back to replicated (``searchsorted`` has
-    no DTensor strategy), so these records show the fallback's gathers.
+    The grouped dispatch runs on each device's own groups
+    (``models/moe.py``), where the ungrouped one sorts the whole batch's
+    pairs.
     """
     def set_groups(c, g, **kw):
         return dataclasses.replace(c, moe=dataclasses.replace(c.moe, dispatch_groups=g), **kw)

@@ -20,24 +20,35 @@ written in place BEFORE attention reads the pool: the chunk's writes land
 at positions ``>= starts`` while the prefix segment reads only positions
 ``< starts``, so the attended values equal a pre-write read.
 
-**Dense cache** (one layer): ``k``/``v`` ``(B, KVH, S + 1, D)`` with
-``S = cache_len(cfg, max_seq)``: slot ``s < S`` holds position ``s`` (full
-attention) or the latest position ``p`` with ``p % S == s`` (rolling
-sliding-window cache).  Column ``S`` is the write sink that takes the
-writes JAX drops as out of range (inactive chunk tokens, finished slots
-idling in a decode burst); nothing reads it.  A rolling chunk step may
-overwrite slots its own queries still attend, so it reads the cache
-BEFORE the write (the reference's functional read); full attention reads
-after it, as the paged pool does.
+**Dense cache** (one layer): ``k``/``v`` ``(B, KVH, S, D)`` with ``S =
+cache_len(cfg, max_seq)``, the reference's shape: column ``s`` holds
+position ``s`` (full attention) or the latest position ``p`` with ``p %
+S == s`` (rolling sliding-window cache).  A chunk or decode write puts
+each token at column ``p % S`` of its row with one ``scatter_`` per leaf
+(``_write_dense``).  The writes JAX drops as out of range (inactive
+chunk tokens, positions past S under full attention, finished slots
+idling at ``lengths == S`` in a decode burst) write back the value their
+column held, gathered before the write: their column ``p % S`` is one no
+kept write of the row takes, since a row's C writes fall on C distinct
+columns while ``C <= S`` (checked), so no scatter sees a duplicate
+index.  On a mesh that shards ``kv_seq`` each shard writes the columns
+it owns and writes back the rest, as GSPMD partitions the reference's
+``.at[...].set(mode="drop")``; the single-shot prefill replaces every
+column with one ``copy_``.  A rolling chunk step may overwrite slots its
+own queries still attend, so it reads the cache BEFORE the write (the
+reference's functional read); full attention reads after it, as the
+paged pool does.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 import math
 
+from repro_torch.distributed.local import localize, shard_span
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_quant)
 from repro_torch.kernels.flash_attention import flash_attention
@@ -96,9 +107,9 @@ def cache_len(cfg, max_seq: int) -> int:
 
 
 def dense_kv_shape(cfg, batch: int, max_seq: int) -> Tuple[int, ...]:
-    """Shape of one layer's dense k (or v) cache: ``cache_len`` slots per
-    sequence plus the write sink column."""
-    return (batch, cfg.num_kv_heads, cache_len(cfg, max_seq) + 1,
+    """Shape of one layer's dense k (or v) cache: ``cache_len`` columns
+    per sequence, as the reference's ``init_kv_cache``."""
+    return (batch, cfg.num_kv_heads, cache_len(cfg, max_seq),
             cfg.resolved_head_dim)
 
 
@@ -235,10 +246,11 @@ def attend_prefill(params, cfg, x: torch.Tensor, positions: torch.Tensor,
 
     x: (B, L, d); positions: (1 or B, L), ``[0, L)``.  The attention is
     ``_sdpa`` over the prompt, as the reference computes it outside any
-    kernel.  The cache's S = ``cache_len`` live columns take the prompt's
-    k/v: position p at column p, the rest zeroed; a rolling window shorter
+    kernel.  Every one of the cache's S = ``cache_len`` columns is
+    replaced, as the reference builds a new cache: position p at column
+    p, the rest zeroed (the prompt fits, L <= S); a rolling window shorter
     than the prompt keeps the last S positions, position p at column
-    ``p % S``.  The write-sink column S stays as it was.  Returns (B, L, d).
+    ``p % S``.  Returns (B, L, d).
     """
     B, L, _ = x.shape
     q, k, v = _project_qkv(params, cfg, x, positions)  # k/v: (B, L, KVH, hd)
@@ -252,17 +264,15 @@ def attend_prefill(params, cfg, x: torch.Tensor, positions: torch.Tensor,
     out = out.transpose(1, 2).reshape(B, L, cfg.num_heads
                                       * cfg.resolved_head_dim)
 
-    S = cache["k"].shape[2] - 1
+    S = cache["k"].shape[2]
     if cfg.sliding_window is not None and L > S:
         # the last S positions, each at its rolling column
-        slots = torch.remainder(torch.arange(L - S, L, device=x.device), S)
-        _write_dense(cfg, cache, k[:, L - S:], v[:, L - S:],
-                     slots[None].expand(B, S))
+        _fill_dense(cfg, cache, k[:, L - S:], v[:, L - S:], L % S)
+    elif L > S:
+        raise ValueError(f"a prompt of {L} tokens does not fit the cache's "
+                         f"{S} columns")
     else:
-        for leaf in cache.values():
-            leaf[:, :, L:S] = 0
-        _write_dense(cfg, cache, k, v,
-                     torch.arange(L, device=x.device)[None].expand(B, L))
+        _fill_dense(cfg, cache, k, v, 0)
     return out @ params["wo"]
 
 
@@ -277,22 +287,107 @@ def _kv_rows(cfg, k: torch.Tensor, v: torch.Tensor
     return {"k": k, "v": v}
 
 
-def _write_dense(cfg, cache: Dict[str, torch.Tensor], k: torch.Tensor,
-                 v: torch.Tensor, slots: torch.Tensor) -> None:
-    """Write per-token k/v (B, n, KVH, D) into the dense per-slot cache at
-    ``slots`` (B, n) of each row, in place, quantizing first for int8
-    leaves.  A scatter along the slot axis, not an indexed put: on a
-    batch-sharded DTensor cache (the dry run's) each shard of rows then
-    writes its own rows, where DTensor shards no indexed put over an
-    indexed dimension."""
-    slots = slots.long()
+def _fill_dense(cfg, cache: Dict[str, torch.Tensor], k: torch.Tensor,
+                v: torch.Tensor, shift: int) -> None:
+    """Replace every column of the dense per-slot cache, in place: row i
+    of k/v (B, n, KVH, D), n <= S, at column ``(i + shift) % S``, columns
+    n and on zero (int8 rows and their scales quantized first, then
+    padded with zeros, as the reference pads).  One ``copy_`` per leaf,
+    which a DTensor cache takes shard by shard."""
     for name, val in _kv_rows(cfg, k, v).items():
         leaf = cache[name]
         val = val.transpose(1, 2).to(leaf.dtype)          # (B, KVH, n[, D])
-        idx = slots[:, None, :]
-        if val.dim() == 4:
-            idx = idx[..., None]
-        leaf.scatter_(2, idx.expand(val.shape), val)
+        pad = leaf.shape[2] - val.shape[2]
+        if pad:
+            val = torch.cat([val, torch.zeros_like(val[:, :, :1]).expand(
+                *val.shape[:2], pad, *val.shape[3:])], dim=2)
+        if shift:
+            val = torch.cat([val[:, :, -shift:], val[:, :, :-shift]], dim=2)
+        leaf.copy_(val)
+
+
+def _write_dense(cfg, cache: Dict[str, torch.Tensor], k: torch.Tensor,
+                 v: torch.Tensor, positions: torch.Tensor,
+                 keep: Optional[torch.Tensor]) -> None:
+    """Write per-token k/v (B, n, KVH, D) of ``positions`` (B, n) into the
+    dense per-slot cache, in place, quantizing first for int8 leaves:
+    each token at column ``positions % S`` of its row where ``keep`` (B,
+    n) holds (None: everywhere), the column's own value written back
+    where it does not.
+
+    A row's n columns are distinct while ``n <= S`` (n consecutive
+    positions modulo S), so a dropped write's column is one no kept write
+    of its row takes, and writing its old value back leaves it as it was:
+    the drop costs a gather and a select a leaf, and the scatter sees no
+    duplicate index (torch leaves the winner of duplicates undefined).
+    The columns are worked out once for every leaf; a DTensor cache
+    writes each shard's own (``_write_shard``)."""
+    rows = _kv_rows(cfg, k, v)
+    if isinstance(cache["k"], DTensor):
+        for name, val in rows.items():
+            _write_shard(cache[name], val.transpose(1, 2), positions, keep)
+        return
+    S = cache["k"].shape[2]
+    col, keep = _columns(positions, keep, S, S, 0)
+    for name, val in rows.items():
+        leaf = cache[name]
+        _scatter_columns(leaf, val.transpose(1, 2).to(leaf.dtype), col, keep)
+
+
+def _columns(positions: torch.Tensor, keep: Optional[torch.Tensor], S: int,
+             S_local: int, first: int
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The column (B, n) int64 among the ``S_local`` held here (from
+    ``first`` of S) that each write takes, and where it lands (None:
+    everywhere).  Off a mesh ``S_local == S``; on one, a write lands
+    where the shard owns its column ``positions % S``, and every column
+    is ``positions % S_local``, distinct within a row while ``n <=
+    S_local`` (``S_local`` divides S and ``first`` is a multiple of it)."""
+    n = positions.shape[1]
+    if n > S_local:
+        raise ValueError(
+            f"{n} writes a row need C <= S: a chunk of {n} tokens would put "
+            f"two of them in one of the cache's {S_local} columns"
+            + (" on a shard" if S_local != S else ""))
+    if S_local != S:
+        col = torch.remainder(positions, S)
+        own = (col >= first) & (col < first + S_local)
+        keep = own if keep is None else keep & own
+    return torch.remainder(positions, S_local).long(), keep
+
+
+def _scatter_columns(leaf: torch.Tensor, val: torch.Tensor, col: torch.Tensor,
+                     keep: Optional[torch.Tensor]) -> None:
+    """``val`` (B, KVH, n[, D]) into ``leaf`` (B, KVH, S[, D]) at ``col``
+    (B, n) of each row, the old value where ``keep`` does not hold."""
+    idx = col[:, None, :]
+    if val.dim() == 4:
+        idx = idx[..., None]
+    idx = idx.expand(val.shape)
+    if keep is not None:
+        keep = keep[:, None, :, None] if val.dim() == 4 else keep[:, None]
+        val = torch.where(keep, val, leaf.gather(2, idx))
+    leaf.scatter_(2, idx, val)
+
+
+def _write_shard(leaf: DTensor, val: torch.Tensor, positions: torch.Tensor,
+                 keep: Optional[torch.Tensor]) -> None:
+    """``_write_dense`` of one DTensor leaf, on this rank's shard
+    (``distributed/local.py``): ``val`` (B, KVH, n[, D]) with the leaf's
+    rows and heads and all n columns, ``positions``/``keep`` with its
+    rows; a write lands where the shard owns its column.  No gather of
+    the cache and no fallback, as GSPMD partitions the reference's
+    ``.at[...].set(mode="drop")``."""
+    mesh, pl = leaf.device_mesh, leaf.placements
+    first, S_local = shard_span(leaf, 2)
+    val = localize(val, mesh, [Replicate() if p.is_shard(2) else p
+                               for p in pl]).to(leaf.dtype)
+    rows = [p if p.is_shard(0) else Replicate() for p in pl]
+    positions = localize(positions, mesh, rows)
+    if keep is not None:
+        keep = localize(keep, mesh, rows)
+    col, keep = _columns(positions, keep, leaf.shape[2], S_local, first)
+    _scatter_columns(leaf.to_local(), val, col, keep)
 
 
 def _write_pages(cfg, pool: Dict[str, torch.Tensor], k: torch.Tensor,
@@ -384,17 +479,15 @@ def attend_prefill_chunk_paged(params, cfg, x: torch.Tensor,
 # dense per-slot cache
 # ---------------------------------------------------------------------------
 
-def _read_dense(cfg, cache: Dict[str, torch.Tensor], S: int,
+def _read_dense(cfg, cache: Dict[str, torch.Tensor],
                 dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The cache's S real slots as (B, KVH, S, D) k/v: views of a float
-    cache, or int8 rows dequantized to ``dtype`` (the reference's non-kernel
-    paths cast to the activations' dtype)."""
+    """The cache's k/v (B, KVH, S, D): the leaves of a float cache, or int8
+    rows dequantized to ``dtype`` (the reference's non-kernel paths cast to
+    the activations' dtype)."""
     if cfg.kv_quant:
-        return (_dequantize_kv(cache["k"][:, :, :S], cache["k_scale"][:, :, :S],
-                               dtype),
-                _dequantize_kv(cache["v"][:, :, :S], cache["v_scale"][:, :, :S],
-                               dtype))
-    return cache["k"][:, :, :S], cache["v"][:, :, :S]
+        return (_dequantize_kv(cache["k"], cache["k_scale"], dtype),
+                _dequantize_kv(cache["v"], cache["v_scale"], dtype))
+    return cache["k"], cache["v"]
 
 
 def attend_prefill_chunk(params, cfg, x: torch.Tensor,
@@ -404,16 +497,18 @@ def attend_prefill_chunk(params, cfg, x: torch.Tensor,
 
     x: (B, C, d) right-padded chunk; positions: (B, C) absolute positions
     (row b starts at ``starts[b] = positions[b, 0]``); valid: (B,) real
-    tokens per row (0 = inactive: writes go to the sink, output ignored).
-    The chunk's k/v are written at their slots (``pos % S`` for a rolling
-    SWA cache); attention runs over two segments, the pre-chunk cache and
-    the chunk's own fresh keys, with the reference's masks.  A rolling
+    tokens per row (0 = inactive: no writes, output ignored).  The chunk's
+    k/v are written at their slots (``pos % S`` for a rolling SWA cache;
+    inactive tokens and, under full attention, positions past S dropped,
+    as JAX drops them; ``C <= S``); attention runs over two segments, the
+    pre-chunk cache and the chunk's own fresh keys, with the reference's
+    masks.  A rolling
     cache is read before the write (the chunk may overwrite slots its
     queries still attend); full attention after it (its writes land at
     slots the cache segment masks).  Returns (B, C, d).
     """
     B, C, _ = x.shape
-    S = cache["k"].shape[2] - 1
+    S = cache["k"].shape[2]
     swa = cfg.sliding_window is not None
     q, k, v = _project_qkv(params, cfg, x, positions)  # k/v: (B, C, KVH, hd)
     starts = positions[:, 0]
@@ -422,15 +517,14 @@ def attend_prefill_chunk(params, cfg, x: torch.Tensor,
     vh = v.transpose(1, 2)
 
     def both_segments():
-        old_k, old_v = _read_dense(cfg, cache, S, x.dtype)
+        old_k, old_v = _read_dense(cfg, cache, x.dtype)
         return torch.cat([old_k, kh], dim=2), torch.cat([old_v, vh], dim=2)
 
     in_chunk = torch.arange(C, device=x.device)[None, :] < valid[:, None]
-    slot = torch.remainder(positions, S) if swa else positions
-    write_slot = torch.clamp(torch.where(in_chunk, slot, S), max=S)
+    keep = in_chunk if swa else in_chunk & (positions < S)
     if swa:
         k_all, v_all = both_segments()                # the pre-write cache
-    _write_dense(cfg, cache, k, v, write_slot)
+    _write_dense(cfg, cache, k, v, positions, keep)
     if not swa:
         k_all, v_all = both_segments()
 
@@ -463,21 +557,22 @@ def attend_decode(params, cfg, x: torch.Tensor, lengths: torch.Tensor,
 
     x: (B, 1, d); lengths: (B,) int32 tokens already cached (= the new
     token's position).  The new token's k/v is written at slot ``lengths``
-    (``lengths % S`` rolling; the sink past the end), then full attention
-    runs the dense decode kernel (its int8 twin for an int8 cache) over the
-    inclusive ``lengths + 1`` rows, and a rolling SWA cache masks slots by
-    the position they hold, in plain ops, as the reference does outside
-    Pallas.  Returns (B, 1, d).
+    (``lengths % S`` rolling; dropped at ``lengths >= S`` under full
+    attention, as JAX drops it: a finished slot idling in a burst), then
+    full attention runs the dense decode kernel (its int8 twin for an int8
+    cache) over the inclusive ``lengths + 1`` rows, and a rolling SWA cache
+    masks slots by the position they hold, in plain ops, as the reference
+    does outside Pallas.  Returns (B, 1, d).
     """
     B = x.shape[0]
-    S = cache["k"].shape[2] - 1
+    S = cache["k"].shape[2]
     q, k, v = _project_qkv(params, cfg, x, lengths[:, None])
     swa = cfg.sliding_window is not None
-    slot = torch.remainder(lengths, S) if swa else torch.clamp(lengths, max=S)
-    _write_dense(cfg, cache, k, v, slot[:, None])
+    _write_dense(cfg, cache, k, v, lengths[:, None],
+                 None if swa else (lengths < S)[:, None])
     if not swa:
-        # a finished slot idling in a burst sits at lengths == S: clamp so
-        # the kernel never reads the sink column
+        # a finished slot idling in a burst sits at lengths == S: its
+        # count clamps to the S columns (the reference's mask passes them)
         kv_valid = torch.clamp(lengths + 1, max=S)
         q1 = q[:, 0].contiguous()
         if cfg.kv_quant:
@@ -490,7 +585,7 @@ def attend_decode(params, cfg, x: torch.Tensor, lengths: torch.Tensor,
         kv_pos = torch.arange(S, device=x.device)[None, :]
         held = lengths[:, None] - torch.remainder(lengths[:, None] - kv_pos, S)
         live = (held >= 0) & (held >= lengths[:, None] - (S - 1))
-        k_all, v_all = _read_dense(cfg, cache, S, x.dtype)
+        k_all, v_all = _read_dense(cfg, cache, x.dtype)
         attn = _sdpa(q.transpose(1, 2), k_all, v_all,
                      live[:, None, None, :])[:, :, 0]
     return attn.reshape(B, 1, cfg.num_heads * cfg.resolved_head_dim) \

@@ -177,9 +177,9 @@ def cross_attend(bp_cross, cfg, x: torch.Tensor,
 
 def init_cache(cfg, batch: int, max_seq: int, dtype: torch.dtype,
                device: torch.device) -> Dict[str, object]:
-    """Zeroed self-attention caches (layers, B, KVH, max_seq + 1, D) (the
-    last column the write sink; int8 with scales for ``cfg.kv_quant``) and
-    cross K/V (layers, B, KVH, num_frames, D) in ``dtype``."""
+    """Zeroed self-attention caches (layers, B, KVH, max_seq, D) (int8
+    with scales for ``cfg.kv_quant``) and cross K/V (layers, B, KVH,
+    num_frames, D) in ``dtype``."""
     shape = (cfg.num_layers,) + attention.dense_kv_shape(cfg, batch, max_seq)
     cross = (cfg.num_layers, batch, cfg.num_kv_heads,
              cfg.encoder.num_frames, cfg.resolved_head_dim)

@@ -99,8 +99,7 @@ def init_state(cfg, batch: int, max_seq: int, dtype: torch.dtype,
                device: torch.device) -> Dict[str, object]:
     """mamba2's state (zero conv histories in ``dtype`` and f32 SSM states
     on a leading ``layers`` axis) and one zeroed dense KV cache of
-    ``max_seq`` positions (plus the write-sink column) per site on a
-    leading ``sites`` axis."""
+    ``cache_len`` columns per site on a leading ``sites`` axis."""
     state = ssm_lm.init_state(cfg, batch, max_seq, dtype, device)
     shape = (len(attn_sites(cfg)),) + attention.dense_kv_shape(cfg, batch,
                                                                max_seq)

@@ -70,8 +70,8 @@ class Model:
 
 
 def _kv_cache_axes_tree(cfg):
-    """Logical axes of a stacked dense KV cache, (layers, B, KVH, S + 1,
-    D): the write-sink column sits on the ``kv_seq`` axis."""
+    """Logical axes of a stacked dense KV cache, (layers, B, KVH, S, D),
+    the reference's: ``kv_seq`` shards over "model" where S divides it."""
     ax = (None, "batch", "kv_heads", "kv_seq", None)
     tree = {"k": ax, "v": ax}
     if cfg.kv_quant:

@@ -14,13 +14,26 @@ What the port keeps bit for bit, and how:
     them: a stable descending sort, first k (``torch.topk`` promises no
     order among equal values on CUDA);
   * the slot order is the reference's: each token's index repeated k
-    times (``jnp.repeat``), ``argsort(stable=True)``, ``searchsorted(side=
-    "left")``, so the capacity drop falls on the same pairs.  The capacity
-    counts every row of the batch, padding and inactive rows included;
+    times (``jnp.repeat``), ``argsort(stable=True)``, and each pair's rank
+    among its expert's pairs; the rank's segment start comes from
+    per-expert counts (an exclusive cumsum), the integers the reference's
+    ``searchsorted(side="left")`` gives, so the capacity drop falls on the
+    same pairs.  The capacity counts every row of the batch, padding and
+    inactive rows included;
   * the combine adds the k slices of the (T, k, d) pair outputs in index
     order into zeros of the activation dtype, each add rounding as the
     reference's scatter-add does, with no atomics (``index_add_`` on CUDA
     adds in no fixed order, which would break bitwise replay).
+
+With ``dispatch_groups`` G the tokens run as one batched ``(G, T / G)``
+dispatch, the counterpart of the reference's ``jax.vmap`` over groups:
+the sort, ranking, dispatch scatter and combine work within a group.
+On a mesh whose data axes split the groups, they run on each device's
+own groups (``distributed/local.py``: DTensor has no strategy for some
+of these ops along a split axis), the expert products carry the
+(groups: data, experts: "model") sharding, and the combine leaves each
+device a partial sum over its experts, which the next op all-reduces,
+as GSPMD lowers the reference's.
 
 No host sync and no data-dependent shape: the capacity comes from shapes,
 the dispatched buffer is ``(E * C + 1, d)`` with the overflow row last,
@@ -36,7 +49,9 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
+from repro_torch.distributed.local import localize, shard_span
 from repro_torch.models import layers
 
 
@@ -92,16 +107,20 @@ def _topk_routing(logits: torch.Tensor, k: int
 
 def _dispatch_slots(expert_ids: torch.Tensor, capacity: int, E: int
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """expert_ids: (N,) -> (keep (N,) bool, slot (N,) int64) by stable-sort
-    counting: a pair's position is its rank among the pairs of its
-    expert, in pair order."""
-    N = expert_ids.shape[0]
-    order = torch.argsort(expert_ids, stable=True)
-    sorted_expert = expert_ids[order].contiguous()
-    idx = torch.arange(N, device=expert_ids.device)
-    seg_start = torch.searchsorted(sorted_expert, sorted_expert, side="left")
-    pos_sorted = idx - seg_start
-    pos = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
+    """expert_ids: (..., N) -> (keep (..., N) bool, slot (..., N) int64)
+    along the last axis, by stable-sort counting: a pair's position is
+    its rank among the pairs of its expert, in pair order.  The first
+    sorted index of each expert is the exclusive cumsum of the per-expert
+    counts (the reference's ``searchsorted(side="left")``)."""
+    N = expert_ids.shape[-1]
+    order = torch.argsort(expert_ids, dim=-1, stable=True)
+    sorted_expert = torch.gather(expert_ids, -1, order)
+    counts = (sorted_expert[..., None] == torch.arange(
+        E, device=expert_ids.device)).sum(dim=-2)             # (..., E)
+    seg_start = torch.gather(torch.cumsum(counts, dim=-1) - counts, -1,
+                             sorted_expert)
+    pos_sorted = torch.arange(N, device=expert_ids.device) - seg_start
+    pos = torch.empty_like(pos_sorted).scatter_(-1, order, pos_sorted)
     keep = pos < capacity      # capacity drop (overflow pairs ride the residual)
     slot = expert_ids * capacity + torch.where(keep, pos, 0)
     return keep, slot
@@ -150,13 +169,108 @@ def _moe_tokens(params, xf: torch.Tensor, weights: torch.Tensor,
     return out
 
 
+def _dispatch_groups(xg: torch.Tensor, eg: torch.Tensor, capacity: int,
+                     E: int) -> Tuple[torch.Tensor, ...]:
+    """The pair-axis half of a grouped dispatch, within each group: xg (G,
+    Tg, d), eg (G, Tg, k) -> (dispatched (G, E * C, d), keep (G, Tg * k),
+    slot (G, Tg * k)).  Each token's row repeated k times (``jnp.repeat``)
+    lands at its pair's slot; dropped pairs at the overflow row, cut
+    off."""
+    G, Tg, d = xg.shape
+    k = eg.shape[-1]
+    keep, slot = _dispatch_slots(eg.reshape(G, Tg * k), capacity, E)
+    safe = torch.where(keep, slot, E * capacity)             # overflow row
+    dispatched = xg.new_zeros((G, E * capacity + 1, d)).scatter(
+        1, safe[..., None].expand(G, Tg * k, d),
+        xg.repeat_interleave(k, dim=1))
+    return dispatched[:, :-1], keep, slot
+
+
+def _combine_groups(flat_out: torch.Tensor, keep: torch.Tensor,
+                    slot: torch.Tensor, wg: torch.Tensor, first: int,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """The combine within each group: flat_out (G, R, d) f32 holds expert
+    rows [first, first + R) of the groups' E * C (all of them off a mesh);
+    each pair takes its slot's row where it owns it, weighted, and each
+    token adds its k pairs in choice order into zeros of ``dtype`` (the
+    ordered combine of ``_moe_tokens``).  Returns (G, Tg, d): the sum over
+    the experts held here."""
+    G, R, d = flat_out.shape
+    Tg, k = wg.shape[1:]
+    owned = keep & (slot >= first) & (slot < first + R)
+    rows = torch.gather(flat_out, 1, torch.where(owned, slot - first, 0)[
+        ..., None].expand(G, Tg * k, d))
+    pair_out = torch.where(owned[..., None], rows, 0.0)
+    pair_out = (pair_out * wg.reshape(G, Tg * k, 1).to(pair_out.dtype)
+                ).to(dtype).reshape(G, Tg, k, d)
+    out = torch.zeros((G, Tg, d), dtype=dtype, device=flat_out.device)
+    for j in range(k):
+        out = out + pair_out[:, :, j]
+    return out
+
+
+def _group_placements(xf, G: int) -> list:
+    """Placements of the tokens xf (T, d) for a dispatch in G groups: the
+    token axis split over the mesh axes that split it now, outer first,
+    as long as their sizes multiply to a divisor of G (each device then
+    holds whole groups: the data axes, where the batch is split); every
+    other axis replicated."""
+    mesh, out, pieces = xf.device_mesh, [], 1
+    for mdim, p in enumerate(xf.placements):
+        if p.is_shard(0) and G % (pieces * mesh.size(mdim)) == 0:
+            out.append(p)
+            pieces *= mesh.size(mdim)
+        else:
+            out.append(Replicate())
+    return out
+
+
+def _moe_groups(params, xg: torch.Tensor, wg: torch.Tensor,
+                eg: torch.Tensor, capacity: int, E: int) -> torch.Tensor:
+    """G dispatch groups as one batched dispatch: xg (G, Tg, d), wg / eg
+    (G, Tg, k) -> (G, Tg, d).  On a mesh the pair-axis halves run on each
+    device's own groups (the placements of xg's group axis) and, for the
+    combine, its own experts; the combine's result is then a partial sum
+    over the mesh axes that split the experts."""
+    G, Tg, d = xg.shape
+    C = capacity
+    if isinstance(xg, DTensor):
+        mesh, groups = xg.device_mesh, xg.placements
+        dispatched, keep, slot = (
+            DTensor.from_local(t, mesh, groups, run_check=False)
+            for t in _dispatch_groups(localize(xg, mesh, groups),
+                                      localize(eg, mesh, groups), C, E))
+    else:
+        dispatched, keep, slot = _dispatch_groups(xg, eg, C, E)
+    # (G, E, C, d) -> (E, G * C, d): the experts' batched products
+    a = dispatched.reshape(G, E, C, d).transpose(0, 1).reshape(E, G * C, d)
+    gate = F.silu(_expert_mm(a, params["gate"]))
+    up = _expert_mm(a, params["up"])
+    expert_out = _expert_mm((gate * up).to(xg.dtype), params["down"])
+    flat_out = expert_out.reshape(E, G, C, d).transpose(0, 1).reshape(
+        G, E * C, d)
+    if not isinstance(flat_out, DTensor):
+        return _combine_groups(flat_out, keep, slot, wg, 0, xg.dtype)
+    # each device's groups, and its experts where a mesh axis splits them
+    experts = [g if g.is_shard(0) else p if p.is_shard(1) else Replicate()
+               for g, p in zip(groups, flat_out.placements)]
+    flat_out = flat_out.redistribute(mesh, experts)
+    first, _ = shard_span(flat_out, 1)
+    out = _combine_groups(flat_out.to_local(), keep.to_local(),
+                          slot.to_local(), localize(wg, mesh, groups), first,
+                          xg.dtype)
+    return DTensor.from_local(out, mesh, [Partial() if p.is_shard(1) else p
+                                          for p in experts], run_check=False)
+
+
 def apply_moe(params, cfg, x: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, L, d) -> (out (B, L, d), aux_loss 0-dim f32).
 
     With ``moe.dispatch_groups = G`` (and T divisible by G) the tokens are
-    dispatched in G groups of T/G, each with its own capacity, as the
-    reference's vmap over groups."""
+    dispatched in G groups of T/G, each with its own capacity, as one
+    batched dispatch (``_moe_groups``), the reference's vmap over
+    groups."""
     moe = cfg.moe
     B, L, d = x.shape
     T = B * L
@@ -174,9 +288,18 @@ def apply_moe(params, cfg, x: torch.Tensor
 
     Tg = T // G
     capacity = max(int(math.ceil(Tg * k / E * moe.capacity_factor)), k)
-    out = torch.cat([
-        _moe_tokens(params, xf[g * Tg:(g + 1) * Tg],
-                    weights[g * Tg:(g + 1) * Tg],
-                    expert_ids[g * Tg:(g + 1) * Tg], capacity, E, k)
-        for g in range(G)])
-    return out.reshape(B, L, d), aux.float()
+    if isinstance(xf, DTensor):
+        groups = _group_placements(xf, G)
+        xf, weights, expert_ids = (t.redistribute(xf.device_mesh, groups)
+                                   for t in (xf, weights, expert_ids))
+    out = _moe_groups(params, xf.reshape(G, Tg, d),
+                      weights.reshape(G, Tg, k),
+                      expert_ids.reshape(G, Tg, k), capacity, E
+                      ).reshape(B, L, d)
+    if isinstance(out, DTensor):
+        # the combine's one all-reduce, after the view back to (B, L, d):
+        # the view's gradient then comes back whole over the experts'
+        # axes, where one split finer than the groups would fall back
+        out = out.redistribute(out.device_mesh, [
+            Replicate() if p.is_partial() else p for p in out.placements])
+    return out, aux.float()

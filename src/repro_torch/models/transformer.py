@@ -107,9 +107,9 @@ def init_paged_cache(cfg, num_blocks: int, block_size: int,
 
 def init_cache(cfg, batch: int, max_seq: int, dtype: torch.dtype,
                device: torch.device) -> Dict[str, torch.Tensor]:
-    """Stacked per-layer dense caches: (layers, batch, KVH, cache_len + 1,
-    D) for k and v (the last column is the write sink), int8 with
-    (layers, batch, KVH, cache_len + 1) scales when ``cfg.kv_quant``."""
+    """Stacked per-layer dense caches: (layers, batch, KVH, cache_len, D)
+    for k and v, int8 with (layers, batch, KVH, cache_len) scales when
+    ``cfg.kv_quant``, the reference's shapes."""
     shape = (cfg.num_layers,) + attention.dense_kv_shape(cfg, batch, max_seq)
     return attention.kv_buffers(cfg, shape, dtype, device)
 

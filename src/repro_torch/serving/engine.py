@@ -17,7 +17,7 @@ changed is the compute:
     ``kv_quant`` model) on a CUDA device and their plain PyTorch versions
     on the CPU.  Full attention only;
   * backend ``"cuda"``, the counterpart of ``"pallas"``: the dense
-    per-slot cache ``(layers, max_slots, KVH, cache_len + 1, D)`` (a
+    per-slot cache ``(layers, max_slots, KVH, cache_len, D)`` (a
     rolling window for sliding-window models), ``prefill_chunk`` /
     ``decode_step``; decode runs the dense CUDA decode kernel (or its
     int8 twin) under full attention, the chunk step and rolling-window
@@ -32,8 +32,7 @@ changed is the compute:
     length, whose scan is the CUDA SSD kernel on a CUDA device), since
     a state carry or a cross-attention has no chunked prefill.  Each
     slot operation (insert, snapshot, restore) takes axis 1 of every
-    leaf of the nested cache: a KV leaf without its write-sink column,
-    every other leaf (conv, state, cross K/V) whole;
+    leaf of the nested cache whole (KV columns, conv, state, cross K/V);
   * the cache is updated in place; COW page copies land before any
     dispatch or snapshot;
   * the block table is uploaded only when ``BlockManager.table_version``
@@ -97,12 +96,11 @@ import torch
 
 from repro_torch.core.request import Request
 from repro_torch.device import resolve_device
+from repro_torch.models.attention import cache_len
 from repro_torch.models.model_factory import Model
 from repro_torch.serving.kv_cache import BlockManager
 
 ATTENTION_BACKENDS = ("cuda", "paged-cuda")
-# the leaves of a KV cache (models/attention.py), under whatever subtree
-_KV_LEAVES = ("k", "v", "k_scale", "v_scale")
 # backend names of the reference engine; "pallas" / "paged-pallas" are
 # served here as "cuda" / "paged-cuda"
 _REFERENCE_ONLY_BACKENDS = ("xla", "pallas", "paged-xla", "paged-pallas")
@@ -110,11 +108,11 @@ _REFERENCE_ONLY_BACKENDS = ("xla", "pallas", "paged-xla", "paged-pallas")
 
 def _map_tree(fn: Callable, tree: Dict[str, Any], *others: Dict[str, Any]
               ) -> Dict[str, Any]:
-    """``fn(name, leaf, *other_leaves)`` over the leaves of a nested dict
-    of tensors (a cache), ``others`` of the same structure; returns the
+    """``fn(leaf, *other_leaves)`` over the leaves of a nested dict of
+    tensors (a cache), ``others`` of the same structure; returns the
     results in that structure."""
     return {k: _map_tree(fn, v, *(o[k] for o in others))
-            if isinstance(v, dict) else fn(k, v, *(o[k] for o in others))
+            if isinstance(v, dict) else fn(v, *(o[k] for o in others))
             for k, v in tree.items()}
 
 
@@ -363,35 +361,22 @@ class ContinuousBatchingEngine:
                 return i
         return None
 
-    @staticmethod
-    def _slot_index(name: str, leaf: torch.Tensor, b: int) -> tuple:
-        """Slot ``b`` of one dense cache leaf, axis 1 of every leaf: a KV
-        leaf (layers or sites, B, KVH, cache_len + 1, ...) without its
-        write-sink column; an SSM's conv and state and an
-        encoder-decoder's cross K/V whole."""
-        if name in _KV_LEAVES:
-            return (slice(None), b, slice(None),
-                    slice(0, leaf.shape[3] - 1))
-        return (slice(None), b)
-
     def _extract_cache(self, b: int) -> Dict[str, Any]:
         """Dense eviction snapshot: slot ``b`` of every leaf, copied to CPU
         tensors in the cache's own (nested) structure (a copy on the CPU
         too: the slot is rewritten while the snapshot waits)."""
         # qlint: disable=host-sync-in-hot-path -- intended device->host copy: the eviction snapshot must leave the pool
-        return _map_tree(lambda name, leaf: leaf[
-            self._slot_index(name, leaf, b)].to("cpu", copy=True),
-            self.cache)
+        return _map_tree(lambda leaf: leaf[:, b].to("cpu", copy=True),
+                         self.cache)
 
     def _restore_cache(self, snapshot: Dict[str, Any], b: int) -> None:
-        def put(name, leaf, snap):
-            leaf[self._slot_index(name, leaf, b)] = self._to_device(
-                snap, leaf.dtype)
+        def put(leaf, snap):
+            leaf[:, b] = self._to_device(snap, leaf.dtype)
         _map_tree(put, self.cache, snapshot)
 
     def _insert_cache(self, slot_cache: Dict[str, Any], b: int) -> None:
         """Write a batch-1 cache (the single-shot prefill's) into slot b."""
-        def put(name, leaf, one):
+        def put(leaf, one):
             leaf[:, b] = one[:, 0]
         _map_tree(put, self.cache, slot_cache)
 
@@ -895,9 +880,17 @@ class ContinuousBatchingEngine:
         return C
 
     def _bucket_for(self, n: int) -> int:
+        """The padded chunk length for n real tokens: the smallest covering
+        bucket, capped on the dense layout at the cache's S columns, since
+        one dense write takes at most S columns a row (``C <= S``, see
+        ``models/attention.py``).  n itself never exceeds S: admission
+        keeps a prompt below ``max_seq_len`` and ``_chunk_quantum`` keeps a
+        rolling chunk within its window."""
         for b in self.cfg.resolved_buckets():
             if n <= b:
-                return b
+                return b if self.paged \
+                    else min(b, cache_len(self.model.cfg,
+                                          self.cfg.max_seq_len))
         return n
 
     def _finish_if_done(self, slot: int, tok: int, now: float,

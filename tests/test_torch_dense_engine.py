@@ -46,10 +46,11 @@ BASE = dict(max_slots=3, max_seq_len=96, prefill_chunk_tokens=16,
 TWIN = {"cuda": "pallas", "paged-cuda": "paged-pallas"}
 
 
-def _pair(arch, quant, seed):
+def _pair(arch, quant, seed, **over):
     jcfg = dataclasses.replace(ARCHITECTURES[arch].reduced(**TINY),
-                               kv_quant=quant)
-    tcfg = dataclasses.replace(get_arch(arch).reduced(**TINY), kv_quant=quant)
+                               kv_quant=quant, **over)
+    tcfg = dataclasses.replace(get_arch(arch).reduced(**TINY), kv_quant=quant,
+                               **over)
     jmodel = jax_build_model(jcfg)
     jparams = jmodel.init(jax.random.key(seed))
     tparams = from_jax_params(jax.tree.map(np.asarray, jparams), tcfg,
@@ -61,10 +62,10 @@ def _pair(arch, quant, seed):
 def pairs():
     cache = {}
 
-    def get(arch, quant=False, seed=0):
-        key = (arch, quant, seed)
+    def get(arch, quant=False, seed=0, **over):
+        key = (arch, quant, seed, tuple(sorted(over.items())))
         if key not in cache:
-            cache[key] = _pair(arch, quant, seed)
+            cache[key] = _pair(arch, quant, seed, **over)
         return cache[key]
     return get
 
@@ -123,16 +124,40 @@ def test_dense_backend_matches_jax_pallas(pairs, arch, quant, burst, lens):
         == (ws.resumes, ws.evictions, ws.prefill_chunks)
 
 
+@pytest.mark.parametrize("arch,over,quant,lens", [
+    # S = 100 columns under a 128-token bucket
+    (GRANITE, {}, False, (70, 85, 9)),
+    (GRANITE, {}, True, (70, 85, 9)),
+    # a 48-column rolling window under a 64-token bucket, wrapping
+    (DANUBE, {"sliding_window": 48}, False, (70, 90, 9)),
+    (DANUBE, {"sliding_window": 48}, True, (70, 90, 9)),
+])
+def test_chunk_bucket_past_the_cache_columns_matches_jax(pairs, arch, over,
+                                                         quant, lens):
+    """A padding bucket wider than the dense cache's S columns: the port
+    pads to at most S, the reference drops the padding's writes; tokens
+    equal."""
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, 100, size=n).tolist() for n in lens]
+    (want, _), (got, _) = [
+        _evict_resume_trace(eng, Req, prompts, 6)
+        for eng, Req in _engines(pairs(arch, quant, **over), "cuda",
+                                 max_seq_len=100, prefill_chunk_tokens=128)]
+    assert all(len(t) == 6 for t in want)
+    assert got == want
+
+
 def test_dense_cache_layout_and_snapshot(pairs):
-    """Dense int8 caches: int8 k/v slots plus scales, one sink column;
-    the snapshot is the slot's real columns and the layout is "dense"."""
+    """Dense int8 caches: int8 k/v slots plus scales, the reference's S
+    columns; the snapshot is the slot's columns and the layout is
+    "dense"."""
     _, (tm, tp) = pairs(DANUBE, True)
     eng = ContinuousBatchingEngine(tm, tp, EngineConfig(
         device="cpu", attention_backend="cuda", **BASE), model_name="m1")
     S = 64                                        # the reduced window
     assert eng.cache["k"].dtype == torch.int8
-    assert tuple(eng.cache["k"].shape) == (1, 3, 2, S + 1, 16)
-    assert tuple(eng.cache["k_scale"].shape) == (1, 3, 2, S + 1)
+    assert tuple(eng.cache["k"].shape) == (1, 3, 2, S, 16)
+    assert tuple(eng.cache["k_scale"].shape) == (1, 3, 2, S)
     r = Request(prompt_tokens=list(range(30)), model="m1", slo=1e9,
                 max_new_tokens=4)
     assert eng.admit(r)

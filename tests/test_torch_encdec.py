@@ -165,7 +165,7 @@ def test_port_init_and_cache_have_the_reference_shapes(pairs, dtype):
             == (2, 3, jcfg.num_kv_heads, 16, jcfg.resolved_head_dim)
         assert tcache[name].dtype == dtype
     k = jcache["self"]["k"].shape
-    assert tuple(tcache["self"]["k"].shape) == k[:3] + (S + 1,) + k[4:]
+    assert tuple(tcache["self"]["k"].shape) == k
 
 
 # ---------------------------------------------------------------------------
@@ -187,12 +187,11 @@ def test_encoder_matches_jax(pairs, enc_layers):
 
 
 def _cache_close(tcache, jcache, quant: bool) -> None:
-    """The self caches on their real columns (the port's last column is
-    the write sink), the cross K/V whole."""
+    """The self caches and the cross K/V, every column."""
     for name in ("cross_k", "cross_v"):
         _close(tcache[name], jcache[name])
     for name, jleaf in jcache["self"].items():
-        tleaf = tcache["self"][name][:, :, :, :jleaf.shape[3]]
+        tleaf = tcache["self"][name]
         if quant and name in ("k", "v"):
             assert tleaf.dtype == torch.int8
         _close(tleaf, jleaf, INT8_TOL[name] if quant else TOL)

@@ -200,9 +200,16 @@ def test_every_target_writes_one_tagged_record_per_variant(climbed):
     reports = [line for line in first if line.startswith("  tag=")]
     assert len(reports) == 13
     assert all("fallbacks=" in line for line in reports)
-    # the MoE dispatch runs replicated: its fallbacks are on every line
-    assert all(r["fallback_ops"].get("aten.searchsorted.Tensor")
-               for r in recs if r["arch"] == "qwen3-moe-30b-a3b")
+    # the MoE ranks its pairs by counts (no searchsorted), and the
+    # grouped dispatch runs on each device's own groups: no op of its
+    # sort, ranking, scatter or combine falls back
+    dispatch = ("searchsorted", "sort", "scatter", "gather", "cumsum")
+    for r in recs:
+        assert set(r["fallback_collective_bytes"]) == set(r["fallback_ops"])
+        if r["arch"] == "qwen3-moe-30b-a3b":
+            assert "aten.searchsorted.Tensor" not in r["fallback_ops"]
+            assert not [op for op in r["fallback_ops"]
+                        if any(w in op for w in dispatch)], r["tag"]
 
 
 def test_the_targets_are_the_references():

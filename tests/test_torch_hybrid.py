@@ -5,7 +5,7 @@ the shared attention block at two sites (after layers 1 and 3).
 
   * the weight bridge (the mamba blocks unstacked, the shared block
     carried across whole and back), the port's own init, the state's
-    shapes (one dense KV cache per site, plus the write-sink column);
+    shapes (one dense KV cache per site, the reference's);
   * the single-shot prefill (prompt lengths 1, 5, 16 and 23: below the
     conv's history, mid-chunk, one chunk, past a chunk) and three
     teacher-forced decode steps: logits, conv histories, SSM states and
@@ -77,13 +77,12 @@ def _close(got: torch.Tensor, want, tol=TOL) -> None:
 
 
 def _state_close(tstate, jstate, quant: bool) -> None:
-    """Conv histories and SSM states whole; each site's KV cache on its
-    real columns (the port's last column is the write sink)."""
+    """Conv histories, SSM states and each site's KV cache, every
+    column."""
     for k in ("conv", "ssm"):
         _close(tstate[k], jstate[k], Q_TOL if quant else TOL)
     for name, jleaf in jstate["kv"].items():
-        S_eff = jleaf.shape[3]
-        tleaf = tstate["kv"][name][:, :, :, :S_eff]
+        tleaf = tstate["kv"][name]
         if quant and name in ("k", "v"):
             assert tleaf.dtype == torch.int8
         _close(tleaf, jleaf, INT8_TOL[name] if quant else TOL)
@@ -101,7 +100,7 @@ def test_sites_and_state_shapes(pairs):
     assert set(tstate["kv"]) == set(jstate["kv"]) == {"k", "v"}
     want = jstate["kv"]["k"].shape
     assert want[0] == 2
-    assert tuple(tstate["kv"]["k"].shape) == want[:3] + (S + 1,) + want[4:]
+    assert tuple(tstate["kv"]["k"].shape) == want
     qstate = pairs(True)[5].init_cache(3, S, torch.bfloat16, "cpu")
     assert set(qstate["kv"]) == {"k", "v", "k_scale", "v_scale"}
     assert qstate["kv"]["k"].dtype == torch.int8

@@ -10,8 +10,8 @@ same trace and the same weights (carried across by
     uninterrupted run; whisper's frames ride ``admit(..., extras=...)``
     and ``req.extras``;
   * the eviction snapshot holds every leaf of the nested cache for the
-    slot: the sites' and the self caches' KV without the write-sink
-    column, conv and SSM state whole, and whisper's cross K/V with every
+    slot: the sites' and the self caches' KV (all ``max_seq_len``
+    columns), conv and SSM state whole, and whisper's cross K/V with every
     frame, also at ``max_seq_len`` below the frame count (where a KV slice
     of every leaf would cut the cross K/V to ``max_seq_len`` frames);
   * a granite -> zamba2 -> whisper -> granite swap on the dense layout;
@@ -174,9 +174,9 @@ def _leaves(tree, prefix=""):
 @pytest.mark.parametrize("arch,quant", [(ZAMBA, False), (WHISPER, False),
                                         (WHISPER, True)])
 def test_snapshot_holds_every_leaf_of_the_slot(pairs, arch, quant):
-    """The snapshot of slot b is axis 1 of every leaf: KV leaves without
-    the sink column, every other leaf whole (whisper's cross K/V: all 48
-    frames at max_seq_len 32); a restore into a slot that was overwritten
+    """The snapshot of slot b is axis 1 of every leaf: KV leaves with
+    their max_seq_len columns, every other leaf whole (whisper's cross
+    K/V: all 48 frames at max_seq_len 32); a restore into a slot that was overwritten
     meanwhile brings back exactly those contents."""
     model, params = pairs(arch)[1]
     model = build_model(dataclasses.replace(model.cfg, kv_quant=quant))

@@ -223,7 +223,7 @@ def test_dense_chunks_and_decode_match_jax(arch, quant):
     tcache = tmodel.init_cache(B, S, torch.float32, "cpu")
     S_eff = jcache["k"].shape[3]
     assert S_eff == (64 if arch.startswith("h2o") else S)
-    assert tuple(tcache["k"].shape[3:4]) == (S_eff + 1,)   # + the sink
+    assert tuple(tcache["k"].shape) == jcache["k"].shape
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, 500, size=n) for n in (90, 20, 0)]
     starts = np.zeros(B, np.int32)
@@ -257,6 +257,6 @@ def test_dense_chunks_and_decode_match_jax(arch, quant):
         np.testing.assert_array_equal(tokens[:2],
                                       np.asarray(jl).argmax(-1)[:2])
         lengths = lengths + 1
-    for name in tcache:                # the live slots' real columns
-        _assert_cache_close(tcache[name][:, :2, :, :S_eff],
+    for name in tcache:                # the live slots, every column
+        _assert_cache_close(tcache[name][:, :2],
                             jcache[name][:, :2], name, quant)

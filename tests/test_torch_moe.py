@@ -31,7 +31,15 @@ import torch
 from repro.configs import ARCHITECTURES
 from repro.models import build_model as jax_build_model
 from repro.models import moe as jax_moe
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                      distribute_tensor)
+from torch.distributed.tensor.experimental import implicit_replication
+
 from repro_torch.configs import get_arch
+from repro_torch.distributed import sharding as sh
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch.comm_analysis import DeviceCounter, ReplicateFallback
 from repro_torch.models import build_model, moe
 from repro_torch.models.convert import from_jax_params, to_jax_layout
 from repro_torch.models.model_factory import batch_struct, materialize_batch
@@ -121,10 +129,26 @@ def test_dispatch_slots_match_jax(n, E, capacity):
     assert (capacity < n // E) == (not tk.all())
 
 
+@pytest.mark.parametrize("G,n,E,capacity", [(4, 24, 4, 3), (3, 40, 16, 2),
+                                            (2, 17, 8, 17)])
+def test_batched_dispatch_slots_match_jax_per_group(G, n, E, capacity):
+    """``_dispatch_slots`` on (G, N) ids ranks each row on its own: keep
+    and slot exact against the reference's on each group."""
+    ids = np.random.default_rng(G * n).integers(0, E, size=(G, n))
+    tk, ts = moe._dispatch_slots(torch.tensor(ids), capacity, E)
+    for g in range(G):
+        jk, js = jax_moe._dispatch_slots(jnp.asarray(ids[g], jnp.int32),
+                                         capacity, E)
+        np.testing.assert_array_equal(tk[g].numpy(), np.asarray(jk))
+        np.testing.assert_array_equal(ts[g].numpy(), np.asarray(js))
+
+
 CASES = {"qwen3": (QWEN3, {}),
          "drops": (QWEN3, {"capacity_factor": 0.5}),
          "fine": (QWEN3, {"num_experts": 16, "experts_per_token": 4}),
          "groups": (QWEN3, {"dispatch_groups": 4}),
+         "groups16": (QWEN3, {"dispatch_groups": 16,
+                              "capacity_factor": 0.5}),
          "dbrx": (DBRX, {})}
 
 
@@ -199,6 +223,109 @@ def test_bf16_combine_is_ordered_and_repeatable(pairs, monkeypatch):
     assert a.dtype == torch.bfloat16 and torch.equal(a, b)
     f32, _ = moe.apply_moe(tparams["blocks"][0]["moe"], cfg, x.float())
     torch.testing.assert_close(a.float(), f32, atol=3e-2, rtol=3e-2)
+
+
+def test_grouped_dispatch_runs_shard_local_on_a_mesh():
+    """On a fake 2 x 2 mesh (batch on "data", experts on "model"), the
+    grouped dispatch's sort, ranking, scatter and combine run on each
+    device's own groups, forward and backward: no op falls back, the only
+    forward collectives are the router softmax's gather of this device's
+    logits and the aux loss's all-reduce, and the output is a partial sum
+    over "model" until the combine's all-reduce, which leaves it split
+    over "data" alone."""
+    cfg = get_arch(QWEN3).reduced(num_layers=1, d_model=64)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, dispatch_groups=4))
+    model = build_model(cfg)
+    mesh_lib.release()
+    try:
+        mesh = mesh_lib.make_debug_mesh(2, 2)
+        tree = model.eval_shape_params(torch.float32)
+        params = sh.distribute(mesh, tree, sh.build_shardings(
+            mesh, tree, model.param_axes(), sh.ShardingRules.default()))
+        p = params["blocks"][0]["moe"]
+        assert p["gate"].placements == (Replicate(), Shard(0))
+        for leaf in p.values():
+            leaf.requires_grad_(True)
+        x = distribute_tensor(torch.zeros(4, 8, cfg.d_model, device="meta",
+                                          requires_grad=True), mesh,
+                              [Shard(0), Replicate()])
+        counter = DeviceCounter()
+        fallback = ReplicateFallback(counter)
+        with counter, fallback, implicit_replication():
+            out, aux = moe.apply_moe(p, cfg, x)
+            forward = counter.collectives()
+            (out.float().sum() + aux).backward()
+        assert not fallback.fallbacks
+        assert out.placements == (Shard(0), Replicate())
+        E = cfg.moe.num_experts
+        logits = (4 // 2) * 8 * E * 4          # this device's tokens, f32
+        assert forward.bytes_by_op.get("all-gather", 0) <= logits
+        assert set(forward.bytes_by_op) <= {"all-gather", "all-reduce"}
+        # each data shard's part of the experts' gradient, still split
+        # over "model"
+        assert p["gate"].grad.placements == (Partial(), Shard(0))
+    finally:
+        mesh_lib.release()
+
+
+@pytest.mark.parametrize("coord", [(0, 0), (0, 1), (1, 0), (1, 1)])
+def test_grouped_partial_on_a_mesh_equals_the_plain_on_its_experts(coord):
+    """On a fake 2 x 2 mesh with real CPU values, this process (rank 0,
+    placed at mesh coordinate ``coord`` = (data, model)) holds groups
+    [2 data, 2 data + 2) and experts [2 model, 2 model + 2) of 4.  Its
+    local partial from ``_moe_groups`` equals the plain ``_moe_groups``
+    of the same groups with the other experts' down projection zeroed
+    (their pairs then add exact zeros): a wrong expert offset or a
+    dropped owned pair shows.  No op falls back and nothing is
+    communicated.  Tolerance 1e-6."""
+    cfg = get_arch(QWEN3).reduced(num_layers=1, d_model=64)
+    E, k, G, Tg, C = cfg.moe.num_experts, cfg.moe.experts_per_token, 4, 8, 3
+    rng = np.random.default_rng(7)
+    p = moe.init_moe(torch.Generator().manual_seed(0), cfg, torch.float32,
+                     torch.device("cpu"))
+    xg = torch.tensor(rng.standard_normal((G, Tg, cfg.d_model)),
+                      dtype=torch.float32)
+    wg, eg, _ = moe._topk_routing(torch.tensor(
+        rng.standard_normal((G * Tg, E)), dtype=torch.float32), k)
+    wg, eg = wg.reshape(G, Tg, k), eg.reshape(G, Tg, k)
+    keep, _ = moe._dispatch_slots(eg.reshape(G, Tg * k), C, E)
+    assert not keep.all()                      # the capacity drops pairs
+    g0, e0 = 2 * coord[0], 2 * coord[1]
+    plain_p = dict(p, down=p["down"].clone())
+    plain_p["down"][[e for e in range(E) if not e0 <= e < e0 + 2]] = 0
+    want = moe._moe_groups(plain_p, xg, wg, eg, C, E)[g0:g0 + 2]
+    assert want.abs().sum() > 0
+    # rank 0 at ``coord``: a layout of its own, so that no sharding
+    # cached for another layout (and its coordinate) is reused
+    ranks = np.arange(4).reshape(2, 2)
+    ranks[coord], ranks[0, 0] = 0, ranks[coord]
+    mesh_lib.release()
+    try:
+        mesh_lib.make_debug_mesh(2, 2)
+        mesh = DeviceMesh("cpu", torch.tensor(ranks),
+                          mesh_dim_names=("data", "model"))
+        assert tuple(mesh.get_coordinate()) == coord
+        groups = [Shard(0), Replicate()]
+        xd, wd, ed = (DTensor.from_local(t[g0:g0 + 2], mesh, groups,
+                                         run_check=False)
+                      for t in (xg, wg, eg))
+        pd = {name: DTensor.from_local(
+                  w if name == "router" else w[e0:e0 + 2], mesh,
+                  [Replicate(), Replicate() if name == "router"
+                   else Shard(0)], run_check=False)
+              for name, w in p.items()}
+        counter = DeviceCounter()
+        fallback = ReplicateFallback(counter)
+        with counter, fallback:
+            out = moe._moe_groups(pd, xd, wd, ed, C, E)
+        assert not fallback.fallbacks
+        assert counter.collectives().total_count == 0
+        assert out.placements == (Shard(0), Partial())
+        torch.testing.assert_close(out.to_local(), want, atol=1e-6,
+                                   rtol=1e-6)
+    finally:
+        mesh_lib.release()
 
 
 def test_init_moe_shapes_and_scales():

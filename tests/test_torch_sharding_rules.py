@@ -7,6 +7,7 @@ against the reference's ``PartitionSpec`` with its stacked leading
 entries removed, on the 1-pod and 2-pod meshes, with the dropped axes
 agreeing; and on a fake 2 x 2 mesh, each distributed leaf's local shape
 (full width, meta tensors) against the shard shape computed in numpy."""
+import dataclasses
 from types import SimpleNamespace
 
 import jax
@@ -102,10 +103,8 @@ def test_default_rules_cover_all_logical_axes_used_by_models():
 # every leaf of every registry arch, at full width
 # ---------------------------------------------------------------------------
 
-# (B, S) of the caches compared.  The port's dense cache holds max_seq
-# slots plus a write-sink column: built for S - 1 it has the reference's S
-# columns, so the comparison holds its logical axes and the rules; S is
-# under every sliding window (4096), so a rolling cache has S columns too.
+# (B, S) of the caches compared; S is under every sliding window (4096),
+# so a rolling cache has S columns too.
 CACHE_B, CACHE_S = 128, 2048
 
 
@@ -139,7 +138,7 @@ def test_every_leaf_spec_equals_the_references(arch, mesh):
     jcache = jax.eval_shape(lambda: jmodel.init_cache(CACHE_B, CACHE_S))
     trees = (("params", model.eval_shape_params(), model.param_axes(),
               _ref_leaves(jparams, jmodel.param_axes())),
-             ("cache", model.init_cache(CACHE_B, CACHE_S - 1,
+             ("cache", model.init_cache(CACHE_B, CACHE_S,
                                         torch.float32, "meta"),
               model.cache_axes(),
               _ref_leaves(jcache, jmodel.cache_axes())))
@@ -165,16 +164,21 @@ def test_every_leaf_spec_equals_the_references(arch, mesh):
         assert _suffixes(port_rules.dropped) == _suffixes(ref_rules.dropped)
 
 
-def test_the_sink_column_drops_kv_seq():
-    """At the cache's own S + 1 columns the guard drops ``kv_seq`` on a
-    power-of-two "model" axis, where the reference's S columns shard."""
-    model = build_model(ARCHITECTURES["granite-3-2b"])
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+def test_the_dense_cache_shards_kv_seq(quant):
+    """The cache holds the reference's S columns, so ``kv_seq`` shards over
+    "model" at S = 2048 on 16, k/v and the int8 scales, and nothing is
+    dropped."""
+    cfg = dataclasses.replace(ARCHITECTURES["granite-3-2b"], kv_quant=quant)
+    model = build_model(cfg)
     rules = sh.ShardingRules.default()
-    specs = sh.spec_tree(MESH_1POD, model.init_cache(CACHE_B, CACHE_S,
-                                                     torch.float32, "meta"),
-                         model.cache_axes(), rules)
-    assert specs["k"] == (None, "data", None, None, None)
-    assert _suffixes(rules.dropped) == {f"kv_seq({CACHE_S + 1}%16)"}
+    cache = model.init_cache(CACHE_B, CACHE_S, torch.float32, "meta")
+    assert cache["k"].shape[3] == CACHE_S
+    specs = sh.spec_tree(MESH_1POD, cache, model.cache_axes(), rules)
+    assert specs["k"] == specs["v"] == (None, "data", None, "model", None)
+    if quant:
+        assert specs["k_scale"] == (None, "data", None, "model")
+    assert rules.dropped == []
 
 
 # ---------------------------------------------------------------------------
