@@ -269,10 +269,14 @@ Phases, in order; any failure exits non-zero before the result lines:
  12. dry-run phase (``dryrun_phase``): ``launch/dryrun.py`` on the fake
      16 x 16 mesh for ``DRYRUN_PAIRS`` (per-device peak, flops, collective
      bytes, dropped shardings, fallbacks with their collective bytes and
-     trace time printed: predictions, not measurements); granite
+     trace time printed: predictions, not measurements; each record's
+     collective bytes by op beside the same record's before the
+     vocab-parallel lookup and the one-axis head splits); granite
      decode_32k and zamba2 long_500k must shard their caches' ``kv_seq``
-     and run the dense cache write with no fallback
-     (``check_sharding``); then
+     and run the dense cache write with no fallback, and every record
+     (qwen3-moe train_4k's baseline and ``g16`` too) must run the
+     embedding lookup and its gradient and the k/v head split with no
+     fallback (``check_sharding``); then
      on a 1 x 1 fake mesh granite-3-2b's decode step at 8 x 32768 (bf16)
      and its train step at 2 x 512 (f32, AdamW, remat, the flash kernel's
      config), each beside the same step run for real on the card (the
@@ -3670,7 +3674,8 @@ def _dry_line(rec) -> str:
             f"{rec['cost']['flops_per_device']:.4g}/dev, collectives "
             f"{coll['bytes_by_op']} B in {coll['count_by_op']}, fallbacks "
             f"{rec['fallback_ops']} carrying "
-            f"{rec['fallback_collective_bytes']} B, dropped_shardings "
+            f"{rec['fallback_collective_bytes']} B at "
+            f"{rec['fallback_sites']}, dropped_shardings "
             f"{rec['dropped_shardings']}, trace {rec['trace_s']} s")
 
 
@@ -3679,9 +3684,26 @@ def _dry_line(rec) -> str:
 DENSE_WRITE_OPS = ("scatter", "gather", "where", "copy_")
 
 
+# the ops of the embedding lookup and its gradient (models/layers.py::
+# embed_tokens, distributed/local.py::vocab_lookup), none of which may
+# fall back; and the functions of the head splits (models/attention.py:
+# the k/v projections' and _sdpa's query groups), where no view may fall
+# back
+LOOKUP_OPS = ("index_put", "embedding", "aten.index.")
+KV_SPLIT_SITES = ("(_split_heads)", "(_project_qkv)", "(_sdpa)")
+
+
 def check_sharding(label: str, rec) -> None:
-    """A record with a dense cache must shard its ``kv_seq`` and run the
-    cache write with no fallback."""
+    """A record must run the embedding lookup, its gradient and the k/v
+    head split with no fallback; one with a dense cache must also shard
+    its ``kv_seq`` and run the cache write with no fallback."""
+    fell = [op for op in rec["fallback_ops"]
+            if any(w in op for w in LOOKUP_OPS)]
+    check(not fell, f"{label}: the embedding lookup fell back: {fell}")
+    split = [site for op, sites in rec["fallback_sites"].items()
+             if "view" in op for site in sites
+             if site.endswith(KV_SPLIT_SITES)]
+    check(not split, f"{label}: the k/v head split fell back at {split}")
     if rec["shape"] == "train_4k":
         return
     fell = [op for op in rec["fallback_ops"]
@@ -3689,6 +3711,33 @@ def check_sharding(label: str, rec) -> None:
     check(not any("kv_seq" in d for d in rec["dropped_shardings"]),
           f"{label}: kv_seq dropped: {rec['dropped_shardings']}")
     check(not fell, f"{label}: the dense cache write fell back: {fell}")
+
+
+# the same records on this card (H100 80GB HBM3, torch 2.11) before the
+# vocab-parallel lookup and the one-axis head splits, collective bytes by
+# op, to print beside this run's: the table gathered whole by the
+# lookup, the head splits' views and the lookup gradient's index_put
+BEFORE_COLLECTIVES = {
+    ("granite-3-2b", "decode_32k", ""): {
+        "all-gather": 214827008, "all-reduce": 2703360,
+        "reduce-scatter": 81920},
+    ("qwen3-moe-30b-a3b", "train_4k", ""): {
+        "all-gather": 17549834059776, "all-reduce": 2130253645128,
+        "reduce-scatter": 113246208},
+    ("qwen3-moe-30b-a3b", "train_4k", "g16"): {
+        "all-gather": 1350291161088, "all-reduce": 1756994143560,
+        "reduce-scatter": 113246208},
+    ("zamba2-1.2b", "long_500k", ""): {
+        "all-gather": 135274240, "all-reduce": 204952,
+        "reduce-scatter": 1536},
+}
+
+
+def _beside_before(rec) -> str:
+    now = rec["collectives"]["bytes_by_op"]
+    then = BEFORE_COLLECTIVES[(rec["arch"], rec["shape"], rec["tag"])]
+    return ", ".join(f"{op} {now.get(op, 0)} (before: {then.get(op, 0)})"
+                     for op in sorted(set(now) | set(then)))
 
 
 # the ops of the grouped MoE dispatch's pair axis (models/moe.py::
@@ -3759,6 +3808,8 @@ def dryrun_phase(train_peak: int) -> dict:
             rec = dryrun.run_one(arch, shape, save=False)
             log(f"  [dryrun] {arch} {shape} {rec['mesh']} (prediction): "
                 + _dry_line(rec))
+            log(f"  [dryrun] {arch} {shape} collective bytes by op: "
+                + _beside_before(rec))
             check_sharding(f"dry run {arch} {shape}", rec)
             check(rec["applicable"] and rec["cost"]["flops_per_device"] > 0
                   and rec["memory"]["peak_bytes_per_device"]
@@ -3771,7 +3822,10 @@ def dryrun_phase(train_peak: int) -> dict:
                              **g16)
         log(f"  [dryrun] qwen3-moe-30b-a3b train_4k {rec['mesh']} "
             f"{rec['tag']} (prediction): " + _dry_line(rec))
+        log("  [dryrun] qwen3-moe-30b-a3b train_4k g16 collective bytes by "
+            "op: " + _beside_before(rec))
         check_dispatch("dry run qwen3-moe-30b-a3b train_4k g16", rec)
+        check_sharding("dry run qwen3-moe-30b-a3b train_4k g16", rec)
         mesh_lib.release()
         one = mesh_lib.make_debug_mesh(1, 1)
         decode = dryrun.run_one(

@@ -43,11 +43,16 @@ redistribution's collectives are counted like any other.  It records
 which ops fell back, and how often, and, given the ``DeviceCounter`` below
 it, the collective bytes each op's fallbacks issued
 (``collective_bytes``), so a record can say what share of its
-collectives the fallbacks carry.
+collectives the fallbacks carry, and where in the port each one was
+called (``sites``: the innermost frame of the ``repro_torch`` package
+outside this module; a backward op's is the call that ran the backward,
+as autograd's engine calls it from C++).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import sys
 from collections import Counter, defaultdict
 from typing import Callable, Dict, Optional
 
@@ -189,6 +194,7 @@ class ReplicateFallback(TorchDispatchMode):
         super().__init__()
         self.fallbacks: Counter = Counter()
         self.collective_bytes: Counter = Counter()
+        self.sites: Dict[str, Counter] = defaultdict(Counter)
         self._counter = counter
 
     def _collected(self) -> int:
@@ -210,6 +216,7 @@ class ReplicateFallback(TorchDispatchMode):
                 raise
         name = str(func)
         self.fallbacks[name] += 1
+        self.sites[name][_site()] += 1
         before = self._collected()
         try:
             return self._replicated(func, args, kwargs)
@@ -230,6 +237,24 @@ class ReplicateFallback(TorchDispatchMode):
             .device_mesh
         out = func(*_to_local(args), **_to_local(kwargs))
         return _from_local(out, mesh)
+
+
+def _site() -> str:
+    """``path:line (function)`` of the innermost frame of the
+    ``repro_torch`` package outside this module, the path from the
+    package's directory."""
+    frame = sys._getframe(1)
+    while frame is not None:
+        path = frame.f_code.co_filename
+        if _PACKAGE in path and not path.endswith(_THIS):
+            rel = path[path.rindex(_PACKAGE) + len(_PACKAGE):]
+            return f"{rel}:{frame.f_lineno} ({frame.f_code.co_name})"
+        frame = frame.f_back
+    return "outside the package"
+
+
+_PACKAGE = f"repro_torch{os.sep}"
+_THIS = f"launch{os.sep}comm_analysis.py"
 
 
 def _leaves(x):

@@ -33,8 +33,9 @@ reference's keys but two: ``trace_s`` replaces ``lower_s`` and
 (torch does not count them).  ``fallback_ops`` and
 ``fallback_collective_bytes`` are the port's own: the ops that ran
 replicated (below), and the collective bytes each one's redistributions
-issued.  A record is a prediction of the step's footprint on that mesh,
-not a measurement.
+issued; ``fallback_sites`` says where in the port each op fell back
+(``path:line (function)`` -> count).  A record is a prediction of the
+step's footprint on that mesh, not a measurement.
 
 The step runs the kernels' plain versions: a kernel reads its inputs
 through their data pointers, and a meta tensor has none
@@ -48,13 +49,14 @@ gets, ``comm_analysis.ReplicateFallback`` replicates that op's inputs at
 that call only, as GSPMD's implicit all-gather would, and the record
 counts the gather; ``fallback_ops`` lists them.  Which ops fall back
 depends on torch's version.  On the registry's archs the one left is
-``aten.view``: splitting the k/v projections, sharded over "model", into
-KV heads where a shard boundary cuts a head (KV heads x head_dim
-narrower than the "model" axis allows whole heads), gathered before the
-split.  The kernels' plain versions split their query heads after
-gathering only the "model" axis (``distributed/local.py::whole``).
+``aten.view`` under torch 2.13 in qwen3-moe train_4k ``g16_mb4``: the
+backward of ``models/attention.py::_sdpa``'s output view, in the layers
+where 2.13 leaves the queries a partial sum over "model" (it splits the
+residual stream over its width there), so that nothing gathered them
+before their group split; torch 2.11 shards that record with no
+fallback.
 
-Three places were written so that they shard under torch 2.11 and 2.13
+Five places were written so that they shard under torch 2.11 and 2.13
 alike, with no fallback:
 
   * the dense cache write (``models/attention.py::_write_dense``).  The
@@ -74,8 +76,25 @@ alike, with no fallback:
     sort, ranking, scatter and combine run on each device's own groups,
     and the ranking counts instead of ``searchsorted``, which has no
     strategy at all;
+  * the embedding lookup (``models/layers.py::embed_tokens``) runs as
+    XLA partitions the reference's: a masked lookup in each shard's rows
+    of the vocab-split table, a partial sum that one all-reduce of the
+    output completes, and a local ``index_put`` for its gradient; no
+    gather of the table (``distributed/local.py::vocab_lookup``);
+  * the k/v projections' head split (``models/attention.py::
+    _split_heads``) and ``_sdpa``'s split of the query heads into KV
+    groups gather only the "model" axis where its shards cut a KV head
+    (or its group), as the kernels' plain versions do for their query
+    heads (``distributed/local.py::whole``), and ``_sdpa`` gathers its
+    output's gradient over the same axis before the group view's
+    backward;
   * the cross-entropy keeps its gathered gold logits in their gathered
     shape (``models/layers.py::next_token_ce``).
+
+A microbatch is a slice of the batch, which DTensor gathers whole; the
+train step splits it back over the batch's axes
+(``training/train_step.py::_rows``), so each microbatch runs
+data-parallel.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-3-2b --shape decode_32k
@@ -268,6 +287,8 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
         "dropped_shardings": sorted(set(rules.dropped)),
         "fallback_ops": dict(fallback.fallbacks),
         "fallback_collective_bytes": dict(fallback.collective_bytes),
+        "fallback_sites": {op: dict(sites)
+                           for op, sites in fallback.sites.items()},
         "model_params": cfg.param_count(),
         "model_active_params": cfg.active_param_count(),
         "tokens_per_step": shape.global_batch * (shape.seq_len

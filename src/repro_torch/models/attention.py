@@ -48,7 +48,7 @@ from torch.distributed.tensor import DTensor, Replicate
 
 import math
 
-from repro_torch.distributed.local import localize, shard_span
+from repro_torch.distributed.local import localize, shard_span, whole
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_quant)
 from repro_torch.kernels.flash_attention import flash_attention
@@ -144,9 +144,31 @@ def _dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
     return (q.float() * scale[..., None].float()).to(dtype)
 
 
+def _cuts(x: torch.Tensor, dim: int, groups: int) -> bool:
+    """Whether ``x`` is a DTensor whose mesh axes split dimension ``dim``
+    into pieces that cut ``groups`` equal groups of it (their sizes
+    multiply to no divisor of ``groups``): a view that splits ``dim``
+    into the groups then has no sharding, and DTensor's would gather
+    every axis, the batch's too."""
+    if not isinstance(x, DTensor):
+        return False
+    pieces = math.prod(x.device_mesh.size(i)
+                       for i, p in enumerate(x.placements) if p.is_shard(dim))
+    return groups % pieces != 0
+
+
+def _split_heads(x: torch.Tensor, heads: int, hd: int) -> torch.Tensor:
+    """x (B, L, heads * hd) -> (B, L, heads, hd).  Where the mesh axes
+    that split the last dimension cut a head (granite's 8 KV heads,
+    qwen3-moe's 4, on 16 "model" shards), those axes alone are gathered
+    first (``whole``); where the heads divide, the view splits them."""
+    if _cuts(x, x.ndim - 1, heads):
+        x = whole(x, x.ndim - 1)
+    return x.reshape(*x.shape[:-1], heads, hd)
+
+
 def _project_qkv(params, cfg, x: torch.Tensor, positions: torch.Tensor):
     """x: (B, L, d) -> q (B, L, H, hd), k/v (B, L, KVH, hd), with RoPE."""
-    B, L, _ = x.shape
     hd = cfg.resolved_head_dim
     q = x @ params["wq"]
     k = x @ params["wk"]
@@ -155,9 +177,9 @@ def _project_qkv(params, cfg, x: torch.Tensor, positions: torch.Tensor):
         q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
-    q = q.reshape(B, L, cfg.num_heads, hd)
-    k = k.reshape(B, L, cfg.num_kv_heads, hd)
-    v = v.reshape(B, L, cfg.num_kv_heads, hd)
+    q = _split_heads(q, cfg.num_heads, hd)
+    k = _split_heads(k, cfg.num_kv_heads, hd)
+    v = _split_heads(v, cfg.num_kv_heads, hd)
     q = layers.apply_rope(q, positions, cfg.rope_theta)
     k = layers.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -171,6 +193,11 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     as the reference's ``_sdpa``."""
     B, H, Lq, D = q.shape
     KVH = k.shape[1]
+    # on a mesh whose shards cut a KV head's group of query heads, only
+    # those axes are gathered, as the kernels' plain versions do
+    cut = _cuts(q, 1, KVH)
+    if cut:
+        q = whole(q, 1)
     qg = q.reshape(B, KVH, H // KVH, Lq, D)
     scores = torch.matmul(qg.float(), k[:, :, None].float().transpose(-1, -2)) \
         * (1.0 / math.sqrt(D))
@@ -178,7 +205,13 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scores = scores.masked_fill(~mask[:, :, None], -1e30)
     probs = torch.softmax(scores, dim=-1)
     out = torch.matmul(probs.to(v.dtype), v[:, :, None])
-    return out.reshape(B, H, Lq, D).to(v.dtype)
+    out = out.reshape(B, H, Lq, D)
+    if cut:
+        # its gradient comes back split over the heads as q was (by the
+        # output projection), which the group view's backward cannot
+        # take: it is gathered over the same axes first
+        out = out.redistribute(out.device_mesh, out.placements)
+    return out.to(v.dtype)
 
 
 def _sdpa_q_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -229,7 +229,7 @@ def loss_fn(params, cfg, batch, *, remat: bool = True):
     Returns (loss, {"ce", "aux"}), 0-dim f32 tensors."""
     tokens = batch["tokens"].long()
     enc_out = encode(params, cfg, batch["frame_embeds"])
-    x = params["embed"][tokens[:, :-1]]
+    x = layers.embed_tokens(params, tokens[:, :-1])
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     for bp in params["dec_blocks"]:
         x = layers.remat_call(remat, _dec_block_full, cfg, x, positions, bp,
@@ -252,7 +252,7 @@ def prefill(params, cfg, tokens: torch.Tensor, cache,
     if frame_embeds is None:
         raise ValueError(f"{cfg.name} needs frame_embeds to prefill")
     enc_out = encode(params, cfg, frame_embeds)
-    x = params["embed"][tokens.long()]
+    x = layers.embed_tokens(params, tokens)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
 
     def cross(i, bp_cross):
@@ -271,7 +271,7 @@ def decode_step(params, cfg, tokens: torch.Tensor, lengths: torch.Tensor,
                 cache) -> Tuple[torch.Tensor, Dict[str, object]]:
     """tokens (B,) int32; lengths (B,) int32 tokens already in the self
     caches.  Returns (logits (B, V), the cache updated in place)."""
-    x = params["embed"][tokens.long()[:, None]]
+    x = layers.embed_tokens(params, tokens[:, None])
     x = _decode_layers(params, cfg, x, cache,
                        lambda ap, h, layer: attention.attend_decode(
                            ap, cfg, h, lengths, layer),

@@ -89,7 +89,7 @@ def loss_fn(params, cfg, batch, *, remat: bool = True):
     """Next-token cross-entropy.  batch: {"tokens": (B, S+1) integer}.
     Returns (loss, {"ce", "aux"}), 0-dim f32 tensors."""
     tokens = batch["tokens"].long()
-    x = params["embed"][tokens[:, :-1]]
+    x = layers.embed_tokens(params, tokens[:, :-1])
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     hidden = forward_train(params, cfg, x, positions, remat=remat)
     return layers.tied_lm_loss(params, cfg, hidden, tokens[:, 1:])
@@ -150,7 +150,7 @@ def prefill(params, cfg, tokens: torch.Tensor, state
     layer from a zero state, as the reference's).  tokens: (B, L);
     ``state``: ``init_state`` of batch B.  Returns (the last position's
     logits (B, V), the state filled in place)."""
-    x = params["embed"][tokens.long()]
+    x = layers.embed_tokens(params, tokens)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     x = _run(params, cfg, x, state,
              lambda mp, h, st: ssm_lib.mamba_block_full(mp, cfg, h),
@@ -164,7 +164,7 @@ def decode_step(params, cfg, tokens: torch.Tensor, lengths: torch.Tensor,
     """tokens (B,) int32; lengths (B,) int32 tokens already cached (the
     sites' position).  Returns (logits (B, V), the state updated in
     place)."""
-    x = params["embed"][tokens.long()[:, None]]
+    x = layers.embed_tokens(params, tokens[:, None])
     x = _run(params, cfg, x, state,
              lambda mp, h, st: ssm_lib.mamba_block_step(mp, cfg, h, st),
              lambda ap, h, site: attention.attend_decode(ap, cfg, h, lengths,

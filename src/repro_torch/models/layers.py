@@ -14,7 +14,10 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.distributed.local import vocab_lookup
 
 
 # ---------------------------------------------------------------------------
@@ -132,7 +135,19 @@ def sinusoidal_positions(length: int, dim: int,
 
 
 def embed_tokens(params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.long()]
+    """``params["embed"][tokens]``, every model's lookup.  On a DTensor
+    table (the dry run's mesh) it runs shard-local
+    (``distributed/local.py::vocab_lookup``), with no gather of the
+    vocab-split table forward or backward, and its partial sum is
+    completed by one all-reduce of the output, as XLA lowers the
+    reference's lookup: the activations then stay whole over "model", as
+    the reference's rules keep them ("embed" on no axis)."""
+    table = params["embed"]
+    if not isinstance(table, DTensor):
+        return table[tokens.long()]
+    out = vocab_lookup(table, tokens)
+    return out.redistribute(out.device_mesh, [
+        Replicate() if p.is_partial() else p for p in out.placements])
 
 
 def unembed(params, cfg, x: torch.Tensor) -> torch.Tensor:

@@ -256,9 +256,12 @@ def _moe_groups(params, xg: torch.Tensor, wg: torch.Tensor,
                for g, p in zip(groups, flat_out.placements)]
     flat_out = flat_out.redistribute(mesh, experts)
     first, _ = shard_span(flat_out, 1)
+    # the combine reads the weights of this device's experts' pairs
+    # alone: their gradient is a partial sum over the experts' axes
+    wg = localize(wg, mesh, groups, [Partial() if p.is_shard(1) else g
+                                     for g, p in zip(groups, experts)])
     out = _combine_groups(flat_out.to_local(), keep.to_local(),
-                          slot.to_local(), localize(wg, mesh, groups), first,
-                          xg.dtype)
+                          slot.to_local(), wg, first, xg.dtype)
     return DTensor.from_local(out, mesh, [Partial() if p.is_shard(1) else p
                                           for p in experts], run_check=False)
 

@@ -70,7 +70,8 @@ def loss_fn(params, cfg, batch, *, remat: bool = True):
     """Next-token cross-entropy.  batch: {"tokens": (B, S+1) integer}.
     Returns (loss, {"ce", "aux"}), 0-dim f32 tensors."""
     tokens = batch["tokens"].long()
-    hidden = forward_train(params, cfg, params["embed"][tokens[:, :-1]],
+    hidden = forward_train(params, cfg,
+                           layers.embed_tokens(params, tokens[:, :-1]),
                            remat=remat)
     return layers.tied_lm_loss(params, cfg, hidden, tokens[:, 1:])
 
@@ -108,7 +109,7 @@ def prefill(params, cfg, tokens: torch.Tensor,
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """tokens (B, L) -> (logits of the last position, state)."""
     x = _run(ssm_lib.mamba_block_full, params, cfg,
-             params["embed"][tokens.long()], state)
+             layers.embed_tokens(params, tokens), state)
     return _logits(params, cfg, x[:, -1]), state
 
 
@@ -119,5 +120,5 @@ def decode_step(params, cfg, tokens: torch.Tensor, lengths: torch.Tensor,
     is position-free)."""
     del lengths
     x = _run(ssm_lib.mamba_block_step, params, cfg,
-             params["embed"][tokens.long()[:, None]], state)
+             layers.embed_tokens(params, tokens[:, None]), state)
     return _logits(params, cfg, x[:, 0]), state

@@ -5,10 +5,23 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.model_factory import Model
 from repro_torch.training.optimizer import (AdamW, AdamWState, global_norm,
                                             tree_leaves, tree_unflatten)
+
+
+def _rows(v: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Rows ``[lo, hi)`` of a batch leaf.  DTensor gathers a slice of a
+    split dimension whole; on a DTensor split over its batch the slice is
+    split back over the same axes (a local chunk of what every rank now
+    holds), so that each microbatch runs data-parallel, as the reference's
+    reshape into microbatches does under GSPMD."""
+    part = v[lo:hi]
+    if isinstance(v, DTensor) and part.placements != v.placements:
+        part = part.redistribute(v.device_mesh, v.placements)
+    return part
 
 
 def make_train_step(model: Model, opt: AdamW, *, microbatches: int = 1,
@@ -57,7 +70,7 @@ def make_train_step(model: Model, opt: AdamW, *, microbatches: int = 1,
         n = b // microbatches
         acc, loss_sum = None, 0.0
         for i in range(microbatches):
-            mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+            mb = {k: _rows(v, i * n, (i + 1) * n) for k, v in batch.items()}
             loss, _, grads = value_and_grad(params, mb)
             if acc is None:
                 acc = tree_leaves(grads)

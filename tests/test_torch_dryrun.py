@@ -182,6 +182,8 @@ def test_fallback_bytes_are_attributed_to_the_op(mesh2x2):
     # "data"
     gathered = (4 * 16 + 8 * 16 + 8 * 4) * 4
     assert fallback.collective_bytes == {name: gathered}
+    # called from no function of the port
+    assert fallback.sites == {name: {"outside the package": 1}}
     assert counter.collectives().bytes_by_op["all-gather"] >= gathered
 
 
@@ -320,8 +322,13 @@ def test_the_cli_writes_a_record_at_full_width(tmp_path, monkeypatch,
     assert rec["memory"]["alias_bytes_per_device"] == cache
     assert rec["memory"]["argument_bytes_per_device"] > cache
     assert rec["dropped_shardings"] == []
-    # the dense write runs shard-local: no scatter falls back
-    assert set(rec["fallback_ops"]) <= {"aten.view.default"}
+    # the dense write, the lookup and the k/v split run shard-local or
+    # gather one axis: nothing falls back
+    assert rec["fallback_ops"] == {} and rec["fallback_sites"] == {}
+    # the lookup gathers no table: no all-gather as large as one
+    # device's rows of it
+    table = cfg.padded_vocab // 16 * cfg.d_model * 2
+    assert rec["collectives"]["bytes_by_op"].get("all-gather", 0) < table
     skip = json.loads((tmp_path / "granite-3-2b__long_500k__pod16x16.json")
                       .read_text())
     assert skip["applicable"] is False
