@@ -276,9 +276,12 @@ Phases, in order; any failure exits non-zero before the result lines:
      and run the dense cache write with no fallback, and every record
      (qwen3-moe train_4k's baseline and ``g16`` too) must run the
      embedding lookup and its gradient and the k/v head split with no
-     fallback (``check_sharding``); then
-     on a 1 x 1 fake mesh granite-3-2b's decode step at 8 x 32768 (bf16)
-     and its train step at 2 x 512 (f32, AdamW, remat, the flash kernel's
+     fallback (``check_sharding``); hillclimb's qwen3-moe train_4k
+     ``g16`` and ``g16_mb4`` cut to 4 layers must run with no fallback,
+     the microbatched step at most 2x the other's collective bytes
+     (``check_microbatching``); then on a 1 x 1 fake mesh
+     granite-3-2b's decode step at 8 x 32768 (bf16) and its train step
+     at 2 x 512 (f32, AdamW, remat, the flash kernel's
      config), each beside the same step run for real on the card (the
      dense decode kernel, 40 launches; the flash kernel, 80): argument
      bytes equal exactly; the two peaks (and ``[train]``'s granite peak)
@@ -3756,6 +3759,42 @@ def check_dispatch(label: str, rec) -> None:
     check(not fell, f"{label}: the grouped dispatch fell back: {fell}")
 
 
+# the depth at which [dryrun] holds qwen3-moe train_4k's g16_mb4 against
+# g16: the residual's drift that multiplied the microbatched step's
+# collectives showed from the second layer on
+MICROBATCH_LAYERS = 4
+
+
+def check_microbatching(dryrun, hillclimb) -> None:
+    """hillclimb's qwen3-train ``g16`` and ``g16_mb4`` cut to
+    ``MICROBATCH_LAYERS`` layers on the fake 16 x 16 mesh: no op falls
+    back in either, and 4 microbatches issue at most twice the
+    collective bytes of one step (the same tokens)."""
+    recs = {}
+    for variant in list(hillclimb.qwen3_train())[:2]:
+        variant = dict(variant)
+        whole = variant.pop("config_transform")
+        rec = dryrun.run_one(
+            "qwen3-moe-30b-a3b", "train_4k", save=False,
+            config_transform=lambda c: dataclasses.replace(
+                whole(c), num_layers=MICROBATCH_LAYERS), **variant)
+        recs[rec["tag"]] = rec
+        log(f"  [dryrun] qwen3-moe-30b-a3b train_4k {rec['mesh']} "
+            f"{rec['tag']} at {MICROBATCH_LAYERS} of 48 layers "
+            f"(prediction): " + _dry_line(rec))
+    one, four = (recs[t]["collectives"]["total_bytes"]
+                 for t in ("g16", "g16_mb4"))
+    log(f"  [dryrun] qwen3-moe-30b-a3b train_4k at {MICROBATCH_LAYERS} "
+        f"layers: collective bytes g16 {one}, g16_mb4 {four}, ratio "
+        f"{four / one:.4f} (at most 2)")
+    for tag, rec in recs.items():
+        check(not rec["fallback_ops"],
+              f"dry run qwen3-moe-30b-a3b train_4k {tag} at "
+              f"{MICROBATCH_LAYERS} layers fell back: {rec['fallback_ops']}")
+    check(four <= 2 * one, f"dry run qwen3-moe-30b-a3b train_4k: 4 "
+          f"microbatches issue {four} B of collectives, one step {one}")
+
+
 def _card_step(label, dry, fn, args, want) -> dict:
     """``fn(*args)`` once on the card, launch counts set to 0 just before
     and read just after, against the dry run's record ``dry`` of the same
@@ -3826,6 +3865,7 @@ def dryrun_phase(train_peak: int) -> dict:
             "op: " + _beside_before(rec))
         check_dispatch("dry run qwen3-moe-30b-a3b train_4k g16", rec)
         check_sharding("dry run qwen3-moe-30b-a3b train_4k g16", rec)
+        check_microbatching(dryrun, hillclimb)
         mesh_lib.release()
         one = mesh_lib.make_debug_mesh(1, 1)
         decode = dryrun.run_one(

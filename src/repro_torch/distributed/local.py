@@ -32,6 +32,18 @@ axes that split that part, and ``localize`` is given ``Partial()`` there
 (``grad_placements``); else DTensor would take one rank's share for the
 whole gradient.
 
+``complete`` ends each sub-block on the mesh: a projection back to the
+residual stream (attention's ``wo``, the MLPs' ``down`` / ``fc2``, the
+SSM's ``out_proj``, the MoE combine, the lookup) contracts a dimension
+that "model" splits, so DTensor leaves it a partial sum over "model";
+``complete`` all-reduces it there, as XLA completes the reference's, so
+that the residual stream stays whole over "model" between sub-blocks.
+Left partial, it goes to the residual add, where DTensor's propagator
+chooses: torch 2.13 carries it partial into the next layer in a
+microbatched step (and reduces it onto a split of the batch in one
+step), so q and k reach the attention as partial sums that it
+completes at the scores' size.
+
 ``whole`` serves the GQA head splits, which cannot keep a split finer
 than the KV heads (the query split of the kernels' plain versions and of
 ``models/attention.py::_sdpa``, the model's k/v split): it gathers only
@@ -141,6 +153,19 @@ def vocab_lookup(table: DTensor, tokens) -> DTensor:
     inside = (ids >= 0) & (ids < n)
     out = torch.where(inside[..., None], rows[ids.clamp(0, n - 1)], 0)
     return DTensor.from_local(out, mesh, out_pl, run_check=False)
+
+
+def complete(x):
+    """``x`` with its partial sums completed: on a DTensor, each
+    ``Partial`` placement becomes ``Replicate()`` (one all-reduce over
+    those axes) and the others are kept; anything else is returned as it
+    is.  Its gradient needs nothing: a whole gradient is a valid partial
+    one."""
+    if not isinstance(x, DTensor) or not any(p.is_partial()
+                                             for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, [Replicate() if p.is_partial()
+                                          else p for p in x.placements])
 
 
 def whole(x, dim: int):

@@ -48,16 +48,26 @@ Where DTensor has no sharding strategy for an op on the placements it
 gets, ``comm_analysis.ReplicateFallback`` replicates that op's inputs at
 that call only, as GSPMD's implicit all-gather would, and the record
 counts the gather; ``fallback_ops`` lists them.  Which ops fall back
-depends on torch's version.  On the registry's archs the one left is
-``aten.view`` under torch 2.13 in qwen3-moe train_4k ``g16_mb4``: the
-backward of ``models/attention.py::_sdpa``'s output view, in the layers
-where 2.13 leaves the queries a partial sum over "model" (it splits the
-residual stream over its width there), so that nothing gathered them
-before their group split; torch 2.11 shards that record with no
-fallback.
+depends on torch's version.  The records of ``launch/hillclimb.py``'s
+granite-decode and qwen3-train targets have none under torch 2.13;
+under 2.11 ``g16_mb4_seqshard_donate`` has ``aten.view`` fallbacks at
+the (B, L) fold that ``matmul`` makes of each projection's input, a
+residual split over the batch and the sequence, which 2.11 cannot view
+as one dimension.
 
-Five places were written so that they shard under torch 2.11 and 2.13
+Six places were written so that they shard under torch 2.11 and 2.13
 alike, with no fallback:
+
+  * the residual stream stays whole over "model" between sub-blocks, as
+    XLA keeps the reference's: each projection back to it (attention's
+    ``wo``, the MLPs' ``down`` / ``fc2``, the SSM's ``out_proj``, the
+    MoE combine) is a partial sum over "model" that one all-reduce
+    completes (``distributed/local.py::complete``).  Left to the
+    residual add, torch 2.13 carried the partial sum into the next
+    layer, whose attention completed its q and k at the scores' size
+    (qwen3-moe train_4k ``g16_mb4``: 19.8x the collective bytes of
+    ``g16``, 188 view fallbacks); the cross-entropy's normalizer is
+    vocab-parallel likewise (``models/layers.py::next_token_ce``);
 
   * the dense cache write (``models/attention.py::_write_dense``).  The
     cache holds the reference's S columns, so ``kv_seq`` shards over

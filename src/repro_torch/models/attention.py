@@ -48,7 +48,8 @@ from torch.distributed.tensor import DTensor, Replicate
 
 import math
 
-from repro_torch.distributed.local import localize, shard_span, whole
+from repro_torch.distributed.local import (complete, localize,
+                                          shard_span, whole)
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_quant)
 from repro_torch.kernels.flash_attention import flash_attention
@@ -269,7 +270,7 @@ def attend_train(params, cfg, x: torch.Tensor, positions: torch.Tensor,
         out = _sdpa(q, k, v, mask)
     out = out.transpose(1, 2).reshape(B, L, cfg.num_heads
                                       * cfg.resolved_head_dim)
-    return out @ params["wo"]
+    return complete(out @ params["wo"])
 
 
 def attend_prefill(params, cfg, x: torch.Tensor, positions: torch.Tensor,
@@ -306,7 +307,7 @@ def attend_prefill(params, cfg, x: torch.Tensor, positions: torch.Tensor,
                          f"{S} columns")
     else:
         _fill_dense(cfg, cache, k, v, 0)
-    return out @ params["wo"]
+    return complete(out @ params["wo"])
 
 
 def _kv_rows(cfg, k: torch.Tensor, v: torch.Tensor
@@ -470,8 +471,8 @@ def attend_decode_paged(params, cfg, x: torch.Tensor, lengths: torch.Tensor,
         else paged_decode_attention
     attn = kernel(q[:, 0].contiguous(), *_live_pages(cfg, pool), block_table,
                   lengths + 1)
-    return attn.reshape(B, 1, cfg.num_heads * cfg.resolved_head_dim) \
-        @ params["wo"]
+    out = attn.reshape(B, 1, cfg.num_heads * cfg.resolved_head_dim)
+    return complete(out @ params["wo"])
 
 
 def attend_prefill_chunk_paged(params, cfg, x: torch.Tensor,
@@ -505,7 +506,7 @@ def attend_prefill_chunk_paged(params, cfg, x: torch.Tensor,
         block_table, positions[:, 0].to(torch.int32).contiguous(), valid)
     out = attn.transpose(1, 2).reshape(B, C, cfg.num_heads
                                        * cfg.resolved_head_dim)
-    return out @ params["wo"]
+    return complete(out @ params["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -581,7 +582,7 @@ def attend_prefill_chunk(params, cfg, x: torch.Tensor,
     out = _sdpa(qh, k_all, v_all, mask)
     out = out.transpose(1, 2).reshape(B, C, cfg.num_heads
                                       * cfg.resolved_head_dim)
-    return out @ params["wo"]
+    return complete(out @ params["wo"])
 
 
 def attend_decode(params, cfg, x: torch.Tensor, lengths: torch.Tensor,
@@ -621,5 +622,5 @@ def attend_decode(params, cfg, x: torch.Tensor, lengths: torch.Tensor,
         k_all, v_all = _read_dense(cfg, cache, x.dtype)
         attn = _sdpa(q.transpose(1, 2), k_all, v_all,
                      live[:, None, None, :])[:, :, 0]
-    return attn.reshape(B, 1, cfg.num_heads * cfg.resolved_head_dim) \
-        @ params["wo"]
+    out = attn.reshape(B, 1, cfg.num_heads * cfg.resolved_head_dim)
+    return complete(out @ params["wo"])

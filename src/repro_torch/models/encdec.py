@@ -32,6 +32,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.distributed.local import complete
 from repro_torch.models import attention, layers
 
 
@@ -168,7 +169,7 @@ def cross_attend(bp_cross, cfg, x: torch.Tensor,
     q = (x @ bp_cross["wq"]).reshape(B, L, cfg.num_heads, hd).transpose(1, 2)
     out = attention._sdpa(q, ckv["k"], ckv["v"], None)
     out = out.transpose(1, 2).reshape(B, L, cfg.num_heads * hd)
-    return out @ bp_cross["wo"]
+    return complete(out @ bp_cross["wo"])
 
 
 # ---------------------------------------------------------------------------

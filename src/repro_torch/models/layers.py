@@ -14,10 +14,10 @@ import math
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.local import vocab_lookup
+from repro_torch.distributed.local import complete, vocab_lookup
 
 
 # ---------------------------------------------------------------------------
@@ -115,14 +115,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 def swiglu_mlp(params, x: torch.Tensor) -> torch.Tensor:
     gate = F.silu(x @ params["gate"])
-    return (gate * (x @ params["up"])) @ params["down"]
+    return complete((gate * (x @ params["up"])) @ params["down"])
 
 
 def gelu_mlp(params, x: torch.Tensor) -> torch.Tensor:
     """GELU in its tanh form, the default of the reference's
     ``jax.nn.gelu``."""
     h = F.gelu(x @ params["fc1"] + params["b1"], approximate="tanh")
-    return h @ params["fc2"] + params["b2"]
+    return complete(h @ params["fc2"]) + params["b2"]
 
 
 def sinusoidal_positions(length: int, dim: int,
@@ -145,9 +145,7 @@ def embed_tokens(params, tokens: torch.Tensor) -> torch.Tensor:
     table = params["embed"]
     if not isinstance(table, DTensor):
         return table[tokens.long()]
-    out = vocab_lookup(table, tokens)
-    return out.redistribute(out.device_mesh, [
-        Replicate() if p.is_partial() else p for p in out.placements])
+    return complete(vocab_lookup(table, tokens))
 
 
 def unembed(params, cfg, x: torch.Tensor) -> torch.Tensor:
@@ -172,8 +170,17 @@ def next_token_ce(logits: torch.Tensor, targets: torch.Tensor
     ``targets`` (B, L), a 0-dim tensor.  Both terms keep their (B, L, 1)
     shape up to the mean: on vocab-sharded DTensor logits (the dry run)
     the gathered gold logits are a masked partial sum, which DTensor can
-    reduce only in the shape it was gathered in."""
-    logz = torch.logsumexp(logits, dim=-1, keepdim=True)
+    reduce only in the shape it was gathered in, and the normalizer is
+    vocab-parallel, as XLA partitions the reference's ``logsumexp``: the
+    shards' max and their sum of exponentials are each completed by one
+    all-reduce of (B, L, 1) (``torch.logsumexp`` on such logits would
+    gather them whole over the vocab)."""
+    if isinstance(logits, DTensor):
+        top = complete(logits.detach().amax(dim=-1, keepdim=True))
+        logz = top + torch.log(complete(
+            torch.exp(logits - top).sum(dim=-1, keepdim=True)))
+    else:
+        logz = torch.logsumexp(logits, dim=-1, keepdim=True)
     gold = torch.gather(logits, -1, targets[..., None])
     return torch.mean(logz - gold)
 

@@ -51,7 +51,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate
 
-from repro_torch.distributed.local import localize, shard_span
+from repro_torch.distributed.local import complete, localize, shard_span
 from repro_torch.models import layers
 
 
@@ -287,7 +287,7 @@ def apply_moe(params, cfg, x: torch.Tensor
     if G == 1 or T % G != 0:
         capacity = max(int(math.ceil(T * k / E * moe.capacity_factor)), k)
         out = _moe_tokens(params, xf, weights, expert_ids, capacity, E, k)
-        return out.reshape(B, L, d), aux.float()
+        return complete(out.reshape(B, L, d)), aux.float()
 
     Tg = T // G
     capacity = max(int(math.ceil(Tg * k / E * moe.capacity_factor)), k)
@@ -299,10 +299,7 @@ def apply_moe(params, cfg, x: torch.Tensor
                       weights.reshape(G, Tg, k),
                       expert_ids.reshape(G, Tg, k), capacity, E
                       ).reshape(B, L, d)
-    if isinstance(out, DTensor):
-        # the combine's one all-reduce, after the view back to (B, L, d):
-        # the view's gradient then comes back whole over the experts'
-        # axes, where one split finer than the groups would fall back
-        out = out.redistribute(out.device_mesh, [
-            Replicate() if p.is_partial() else p for p in out.placements])
-    return out, aux.float()
+    # the combine's one all-reduce, after the view back to (B, L, d): the
+    # view's gradient then comes back whole over the experts' axes, where
+    # one split finer than the groups would fall back
+    return complete(out), aux.float()

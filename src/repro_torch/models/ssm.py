@@ -25,6 +25,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.local import complete
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models import layers
 
@@ -174,7 +175,7 @@ def _causal_conv_full(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 def _gated_out(params, cfg, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     y = layers.rms_norm(y * F.silu(z.float()).to(y.dtype),
                         params["norm_scale"], cfg.rms_norm_eps)
-    return y @ params["out_proj"]
+    return complete(y @ params["out_proj"])
 
 
 def mamba_block_full(params, cfg, u: torch.Tensor,
