@@ -277,9 +277,11 @@ Phases, in order; any failure exits non-zero before the result lines:
      (qwen3-moe train_4k's baseline and ``g16`` too) must run the
      embedding lookup and its gradient and the k/v head split with no
      fallback (``check_sharding``); hillclimb's qwen3-moe train_4k
-     ``g16`` and ``g16_mb4`` cut to 4 layers must run with no fallback,
-     the microbatched step at most 2x the other's collective bytes
-     (``check_microbatching``); then on a 1 x 1 fake mesh
+     ``g16``, ``g16_mb4`` and ``g16_mb4_seqshard_donate`` cut to 4 layers
+     must run with no fallback, the microbatched step at most 2x the
+     other's collective bytes, each record's bytes printed beside the
+     same record's under torch 2.13 (``check_microbatching``); then on a
+     1 x 1 fake mesh
      granite-3-2b's decode step at 8 x 32768 (bf16) and its train step
      at 2 x 512 (f32, AdamW, remat, the flash kernel's
      config), each beside the same step run for real on the card (the
@@ -3693,7 +3695,8 @@ DENSE_WRITE_OPS = ("scatter", "gather", "where", "copy_")
 # the k/v projections' and _sdpa's query groups), where no view may fall
 # back
 LOOKUP_OPS = ("index_put", "embedding", "aten.index.")
-KV_SPLIT_SITES = ("(_split_heads)", "(_project_qkv)", "(_sdpa)")
+KV_SPLIT_SITES = ("(_split_heads)", "(_project_qkv)", "(_sdpa)",
+                  "(_sdpa_local)")
 
 
 def check_sharding(label: str, rec) -> None:
@@ -3764,14 +3767,32 @@ def check_dispatch(label: str, rec) -> None:
 # collectives showed from the second layer on
 MICROBATCH_LAYERS = 4
 
+# hillclimb's three qwen3-train variants at MICROBATCH_LAYERS layers under
+# torch 2.13, collective bytes by op (the CPU's dry run of the tree that
+# split the query heads over KV heads and groups, sent the MoE dispatch's
+# gradient back as a partial sum, gathered a sequence-split residual once
+# per sub-block and reduced each gradient once), to print beside this
+# run's
+AT_MICROBATCH_LAYERS_213 = {
+    "g16": {"all-gather": 1207959552, "all-reduce": 6303952912,
+            "reduce-scatter": 33570816},
+    "g16_mb4": {"all-gather": 1224740864, "all-reduce": 6303977496,
+                "reduce-scatter": 33570816},
+    "g16_mb4_seqshard_donate": {"all-gather": 8204062720,
+                                "all-reduce": 3888095256,
+                                "reduce-scatter": 184565760},
+}
+
 
 def check_microbatching(dryrun, hillclimb) -> None:
-    """hillclimb's qwen3-train ``g16`` and ``g16_mb4`` cut to
-    ``MICROBATCH_LAYERS`` layers on the fake 16 x 16 mesh: no op falls
-    back in either, and 4 microbatches issue at most twice the
-    collective bytes of one step (the same tokens)."""
+    """hillclimb's three qwen3-train variants (``g16``, ``g16_mb4``,
+    ``g16_mb4_seqshard_donate``) cut to ``MICROBATCH_LAYERS`` layers on
+    the fake 16 x 16 mesh: no op falls back in any, and 4 microbatches
+    issue at most twice the collective bytes of one step (the same
+    tokens).  Each record's collective bytes are printed beside the same
+    record's under torch 2.13."""
     recs = {}
-    for variant in list(hillclimb.qwen3_train())[:2]:
+    for variant in hillclimb.qwen3_train():
         variant = dict(variant)
         whole = variant.pop("config_transform")
         rec = dryrun.run_one(
@@ -3782,6 +3803,14 @@ def check_microbatching(dryrun, hillclimb) -> None:
         log(f"  [dryrun] qwen3-moe-30b-a3b train_4k {rec['mesh']} "
             f"{rec['tag']} at {MICROBATCH_LAYERS} of 48 layers "
             f"(prediction): " + _dry_line(rec))
+        now = rec["collectives"]["bytes_by_op"]
+        then = AT_MICROBATCH_LAYERS_213[rec["tag"]]
+        log(f"  [dryrun] {rec['tag']} at {MICROBATCH_LAYERS} layers, "
+            f"collective bytes by op: " + ", ".join(
+                f"{op} {now.get(op, 0)} (torch 2.13: {then.get(op, 0)})"
+                for op in sorted(set(now) | set(then)))
+            + f"; total {sum(now.values())} (torch 2.13: "
+            f"{sum(then.values())})")
     one, four = (recs[t]["collectives"]["total_bytes"]
                  for t in ("g16", "g16_mb4"))
     log(f"  [dryrun] qwen3-moe-30b-a3b train_4k at {MICROBATCH_LAYERS} "

@@ -1,14 +1,20 @@
 """Shard-local runs of the ops that DTensor shards badly.
 
-Two places in the models work along an axis that the mesh splits into
-pieces each device can handle alone: the dense KV cache's write along
-``kv_seq`` (``models/attention.py``), where each shard writes the
-columns it owns, and the MoE's grouped dispatch (``models/moe.py``),
-whose sort, ranking, scatter and combine stay inside a group.  DTensor
-has no sharding strategy for some of these ops (a scatter along a
-sharded dimension; which others depends on torch's version), and
-``comm_analysis.ReplicateFallback`` would then gather every input
-whole.  These helpers run them on this rank's local tensors instead, as
+Several places in the models work along an axis that the mesh splits
+into pieces each device can handle alone: the dense KV cache's write
+along ``kv_seq`` (``models/attention.py``), where each shard writes the
+columns it owns; attention on a mesh (``models/attention.py::
+_sdpa_local``), where each device attends its own query heads against
+their KV heads, as XLA splits the reference's heads over KV heads and
+groups at once; and the MoE (``models/moe.py``), whose router runs on
+each device's tokens and whose grouped dispatch's sort, ranking, scatter
+and combine stay inside a device's groups and experts.  DTensor has no
+sharding strategy for some of these ops (a scatter along a sharded
+dimension; which others depends on torch's version), or one that
+gathers what XLA never does (a query cut from its KV head, the dispatch
+buffer's gradient), and ``comm_analysis.ReplicateFallback`` would gather
+every input of an op it cannot shard.  These helpers run them on this
+rank's local tensors instead, as
 ``torch.distributed.tensor.experimental.local_map`` with
 ``redistribute_inputs`` does, in a form that torch 2.11 and 2.13 both
 take: each input is redistributed to the placements the local op needs
@@ -26,11 +32,12 @@ table.
 A local op's gradient goes back through ``to_local``, which gives it the
 placements of the forward unless told otherwise.  Where the local op
 reads only part of what it was given (the combine reads the weights of
-this rank's experts' pairs alone, the lookup's gradient covers this
-rank's tokens alone), the local gradient is a partial sum over the mesh
-axes that split that part, and ``localize`` is given ``Partial()`` there
-(``grad_placements``); else DTensor would take one rank's share for the
-whole gradient.
+this rank's experts' pairs alone and the dispatch its experts' rows,
+attention a KV head for this rank's query heads alone, the lookup's
+gradient covers this rank's tokens alone), the local gradient is a
+partial sum over the mesh axes that split that part, and ``localize`` is
+given ``Partial()`` there (``grad_placements``); else DTensor would take
+one rank's share for the whole gradient.
 
 ``complete`` ends each sub-block on the mesh: a projection back to the
 residual stream (attention's ``wo``, the MLPs' ``down`` / ``fc2``, the
@@ -44,10 +51,18 @@ microbatched step (and reduces it onto a split of the batch in one
 step), so q and k reach the attention as partial sums that it
 completes at the scores' size.
 
-``whole`` serves the GQA head splits, which cannot keep a split finer
-than the KV heads (the query split of the kernels' plain versions and of
-``models/attention.py::_sdpa``, the model's k/v split): it gathers only
-the mesh axes that split that dimension.
+``complete_grad`` is its counterpart in the backward: the projections
+out of a sub-block's input leave that input's gradient a partial sum
+over "model", which one all-reduce completes there, as XLA completes
+the reference's, so that the residual stream's gradient stays whole
+over "model" too.
+
+``whole`` serves the splits that must gather a dimension: the GQA k/v
+split, which cannot keep a split finer than the KV heads, and the query
+split of the kernels' plain versions (it gathers only the mesh axes that
+split that dimension); and a residual split on the sequence
+(``shard_activations_seq``), gathered once at the top of each
+sub-block (``models/transformer.py::_sub_block_input``).
 
 On plain tensors (one device, the card or the CPU) nothing here runs:
 the callers test ``isinstance(x, DTensor)`` first.
@@ -63,18 +78,23 @@ from torch.distributed.tensor import (DTensor, Partial, Placement,
 
 def shard_span(t: DTensor, dim: int) -> Tuple[int, int]:
     """(first index, length) of this rank's shard of ``t`` along tensor
-    dimension ``dim``: the mesh axes that shard ``dim`` split it in
-    placement order, the outer axis first, as ``distribute_tensor`` does.
-    The dimension must divide evenly (the sharding rules' guard sees to
-    that)."""
-    mesh = t.device_mesh
+    dimension ``dim`` (``span`` of its placements)."""
+    return span(t.device_mesh, t.placements, dim, t.shape[dim])
+
+
+def span(mesh, placements: Sequence[Placement], dim: int,
+         size: int) -> Tuple[int, int]:
+    """(first index, length) of this rank's shard along tensor dimension
+    ``dim`` of length ``size`` on ``placements``: the mesh axes that
+    shard ``dim`` split it in placement order, the outer axis first, as
+    ``distribute_tensor`` does.  The dimension must divide evenly (the
+    sharding rules' guard sees to that)."""
     coord = mesh.get_coordinate()
     index, pieces = 0, 1
-    for mdim, p in enumerate(t.placements):
+    for mdim, p in enumerate(placements):
         if p.is_shard(dim):
             index = index * mesh.size(mdim) + coord[mdim]
             pieces *= mesh.size(mdim)
-    size = t.shape[dim]
     if size % pieces:
         raise ValueError(f"dimension {dim} of size {size} does not split "
                          f"evenly into {pieces} shards")
@@ -88,16 +108,46 @@ def localize(x, mesh, placements: Sequence[Placement],
     local tensor; a plain tensor counts as replicated.  The local
     tensor's gradient comes back with ``grad_placements`` (by default
     ``placements``): ``Partial()`` on each mesh axis over which the local
-    op's gradient is a partial sum (see the module docstring)."""
-    return _redistributed(x, mesh, placements).to_local(
-        grad_placements=None if grad_placements is None
-        else tuple(grad_placements))
+    op's gradient is a partial sum (see the module docstring); where
+    ``x`` had the placements, in the memory layout of its local tensor
+    (``_GradInLayout``)."""
+    there = placed(x, mesh, placements)
+    local = there.to_local(grad_placements=None if grad_placements is None
+                           else tuple(grad_placements))
+    return _GradInLayout.apply(local) if there is x else local
 
 
-def _redistributed(x, mesh, placements: Sequence[Placement]) -> DTensor:
-    """``x`` on ``placements``; ``x`` itself where it has them, so that a
-    gradient ``to_local`` leaves partial reaches ``x`` unreduced (a
-    redistribution's backward would reduce it to ``x``'s placements)."""
+class _GradInLayout(torch.autograd.Function):
+    """The identity, whose gradient comes back in its input's memory
+    layout (copied where the local op left it in another, as attention's
+    products leave k's): DTensor takes a DTensor's gradient to have the
+    DTensor's layout, plans a view of it on that (the k projection's
+    backward: a local view that then fails and falls back), and copies a
+    ``Partial`` one into another layout by a reduce-scatter onto some
+    dimension and a shuffle back.  (``localize`` applies it where it
+    hands over the DTensor's own local tensor: a redistribution's output
+    keeps no layout.)"""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.stride = x.stride()
+        # its dimensions, outermost first
+        ctx.order = sorted(range(x.ndim), key=lambda d: -x.stride(d))
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if grad.stride() == ctx.stride:
+            return grad
+        return torch.empty_permuted(grad.shape, ctx.order, dtype=grad.dtype,
+                                    device=grad.device).copy_(grad)
+
+
+def placed(x, mesh, placements: Sequence[Placement]) -> DTensor:
+    """``x`` on ``placements`` (a plain tensor counts as replicated);
+    ``x`` itself where it has them, so that a partial gradient reaches
+    ``x`` unreduced (a redistribution's backward, even to the same
+    placements, would reduce it to ``x``'s)."""
     if not isinstance(x, DTensor):
         x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
                                run_check=False)
@@ -146,7 +196,7 @@ def vocab_lookup(table: DTensor, tokens) -> DTensor:
             tok_pl.append(t)
             out_pl.append(t)
             grad_pl.append(Partial() if t.is_shard() else Replicate())
-    tab = _redistributed(table, mesh, tab_pl)
+    tab = placed(table, mesh, tab_pl)
     first, n = shard_span(tab, 0)
     rows = tab.to_local(grad_placements=tuple(grad_pl))
     ids = localize(tok, mesh, tok_pl).long() - first
@@ -166,6 +216,20 @@ def complete(x):
         return x
     return x.redistribute(x.device_mesh, [Replicate() if p.is_partial()
                                           else p for p in x.placements])
+
+
+def complete_grad(x):
+    """``x``, whose gradient, where it comes back a partial sum, is
+    completed by one all-reduce over those axes (the backward of a
+    DTensor's redistribution to its own placements, a no-op forward);
+    anything else is returned as it is.  ``complete``'s counterpart in
+    the backward: each projection out of a sub-block's input leaves that
+    input's gradient a partial sum over "model", which is completed
+    there, as XLA completes the reference's, so that the residual
+    stream's gradient stays whole over "model" too."""
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(x.device_mesh, x.placements)
 
 
 def whole(x, dim: int):

@@ -13,12 +13,13 @@ Parts (``--without``):
     ``embed_tokens`` all-reduces it (XLA's lowering of the reference);
   * ``kv-split``: the k/v projections split into KV heads by a plain
     view (``models/attention.py::_split_heads`` without its ``whole``);
-  * ``query-split``: ``models/attention.py::_sdpa`` splitting its query
-    heads into KV groups by a plain view, its output's gradient
-    unguarded;
-  * ``router-grad``: the MoE combine's weights localized without
-    ``grad_placements`` (``models/moe.py::_moe_groups``), so their
-    gradient is taken for whole where it is this rank's share;
+  * ``query-split``: ``models/attention.py::_sdpa`` run by DTensor, its
+    query heads split into KV groups by a plain view, where it runs on
+    each device's own query heads (``_sdpa_local``);
+  * ``router-grad``: the MoE's local inputs localized without
+    ``grad_placements`` (``models/moe.py``), so the gradients of the
+    combine's weights and of the dispatch's tokens are taken for whole
+    where they are this rank's share;
   * ``microbatch-split``: a microbatch left as DTensor's slice, gathered
     whole (``training/train_step.py::_rows`` without its re-split).
 

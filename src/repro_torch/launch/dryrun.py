@@ -49,14 +49,15 @@ gets, ``comm_analysis.ReplicateFallback`` replicates that op's inputs at
 that call only, as GSPMD's implicit all-gather would, and the record
 counts the gather; ``fallback_ops`` lists them.  Which ops fall back
 depends on torch's version.  The records of ``launch/hillclimb.py``'s
-granite-decode and qwen3-train targets have none under torch 2.13;
-under 2.11 ``g16_mb4_seqshard_donate`` has ``aten.view`` fallbacks at
-the (B, L) fold that ``matmul`` makes of each projection's input, a
-residual split over the batch and the sequence, which 2.11 cannot view
-as one dimension.
+granite-decode and qwen3-train targets have none under torch 2.11 or
+2.13, ``g16_mb4_seqshard_donate`` included: its residual, split over the
+batch and the sequence, is gathered on the sequence once a sub-block,
+where 2.11 could not view each projection's (B, L) fold as one
+dimension.
 
-Six places were written so that they shard under torch 2.11 and 2.13
-alike, with no fallback:
+These places were written so that they shard under torch 2.11 and 2.13
+alike, with no fallback and no collective beyond XLA's plan of the
+reference (``tests/test_torch_mesh_plan.py`` holds that plan):
 
   * the residual stream stays whole over "model" between sub-blocks, as
     XLA keeps the reference's: each projection back to it (attention's
@@ -84,27 +85,35 @@ alike, with no fallback:
     one ``copy_``, which DTensor takes shard by shard;
   * the MoE's grouped dispatch (``models/moe.py::_moe_groups``): the
     sort, ranking, scatter and combine run on each device's own groups,
-    and the ranking counts instead of ``searchsorted``, which has no
-    strategy at all;
+    the dispatch into its own experts' rows (its gradient stays on the
+    device, the tokens' a partial sum over the experts), and the ranking
+    counts instead of ``searchsorted``, which has no strategy at all;
+    the router runs on each device's tokens (``_topk_routing_local``):
+    its stable sort's backward is local under either torch;
   * the embedding lookup (``models/layers.py::embed_tokens``) runs as
     XLA partitions the reference's: a masked lookup in each shard's rows
     of the vocab-split table, a partial sum that one all-reduce of the
     output completes, and a local ``index_put`` for its gradient; no
     gather of the table (``distributed/local.py::vocab_lookup``);
   * the k/v projections' head split (``models/attention.py::
-    _split_heads``) and ``_sdpa``'s split of the query heads into KV
-    groups gather only the "model" axis where its shards cut a KV head
-    (or its group), as the kernels' plain versions do for their query
-    heads (``distributed/local.py::whole``), and ``_sdpa`` gathers its
-    output's gradient over the same axis before the group view's
-    backward;
+    _split_heads``) gathers only the "model" axis where its shards cut a
+    KV head, as the kernels' plain versions do for their query heads
+    (``distributed/local.py::whole``); ``_sdpa`` runs on each device's
+    own query heads against their KV heads' k and v (``_sdpa_local``),
+    with no query gather and no reduction of its output's gradient;
+  * each sub-block's input gradient, a partial sum over "model", is
+    completed once there (``distributed/local.py::complete_grad``), as
+    the forward completes its output;
   * the cross-entropy keeps its gathered gold logits in their gathered
     shape (``models/layers.py::next_token_ce``).
 
 A microbatch is a slice of the batch, which DTensor gathers whole; the
 train step splits it back over the batch's axes
 (``training/train_step.py::_rows``), so each microbatch runs
-data-parallel.
+data-parallel.  The microbatches' gradients are added on their local
+tensors, partial sums staying partial, and every gradient is reduced
+once, onto its parameter's placements, before the norm and the optimizer
+(``training/train_step.py::_reduced``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-3-2b --shape decode_32k

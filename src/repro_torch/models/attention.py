@@ -44,7 +44,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 import math
 
@@ -191,14 +191,12 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, H, Lq, D), k/v: (B, KVH, Lkv, D), GQA by head-group reshape;
     mask broadcastable to (B, 1, Lq, Lkv), True = attend.  Scores and
     softmax in f32, probabilities cast to v's dtype for the value product,
-    as the reference's ``_sdpa``."""
+    as the reference's ``_sdpa``.  On a mesh it runs shard-local
+    (``_sdpa_local``)."""
+    if isinstance(q, DTensor):
+        return _sdpa_local(q, k, v, mask)
     B, H, Lq, D = q.shape
     KVH = k.shape[1]
-    # on a mesh whose shards cut a KV head's group of query heads, only
-    # those axes are gathered, as the kernels' plain versions do
-    cut = _cuts(q, 1, KVH)
-    if cut:
-        q = whole(q, 1)
     qg = q.reshape(B, KVH, H // KVH, Lq, D)
     scores = torch.matmul(qg.float(), k[:, :, None].float().transpose(-1, -2)) \
         * (1.0 / math.sqrt(D))
@@ -206,13 +204,46 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scores = scores.masked_fill(~mask[:, :, None], -1e30)
     probs = torch.softmax(scores, dim=-1)
     out = torch.matmul(probs.to(v.dtype), v[:, :, None])
-    out = out.reshape(B, H, Lq, D)
+    return out.reshape(B, H, Lq, D).to(v.dtype)
+
+
+def _sdpa_local(q: DTensor, k: torch.Tensor, v: torch.Tensor,
+                mask: Optional[torch.Tensor]) -> DTensor:
+    """``_sdpa`` on a mesh, on each device's own query heads, as XLA
+    splits the reference's heads over KV heads and groups at once
+    (``distributed/local.py``): k and v follow q's batch split, and its
+    head split where that keeps whole KV heads; where the mesh axes that
+    split q's heads cut a KV head's group of them (qwen3-moe's 8 query
+    heads a KV head on 16 "model" shards), k and v are whole over those
+    axes (``_split_heads`` has gathered them there) and each device takes
+    the KV heads its query heads belong to.  The output keeps q's split:
+    no query is gathered and the output's gradient needs no reduction.
+    Where k and v are whole over an axis that splits q, they serve this
+    device's queries alone, and their gradients are partial sums there,
+    reduced where the k/v split's gather is undone.  (DTensor's own group
+    view and its batched products fall back under some torch versions.)"""
+    mesh, pl = q.device_mesh, q.placements
+    group = q.shape[1] // k.shape[1]
+    cut = _cuts(q, 1, k.shape[1])
+    kv_pl = [p if p.is_shard(0) or (p.is_shard(1) and not cut)
+             else Replicate() for p in pl]
+    grad_pl = [Partial() if p.is_shard() and not r.is_shard() else r
+               for p, r in zip(pl, kv_pl)]
+    k, v = (localize(t, mesh, kv_pl, grad_pl) for t in (k, v))
+    if mask is not None:        # q's batch and query splits where it has them
+        mask = localize(mask, mesh, [
+            p if p.is_shard() and p.dim in (0, 2) and mask.shape[p.dim] > 1
+            else Replicate() for p in pl])
     if cut:
-        # its gradient comes back split over the heads as q was (by the
-        # output projection), which the group view's backward cannot
-        # take: it is gathered over the same axes first
-        out = out.redistribute(out.device_mesh, out.placements)
-    return out.to(v.dtype)
+        first, n = shard_span(q, 1)
+        kv = first // group
+        if kv == (first + n - 1) // group:  # heads of one KV head's group
+            k, v = k[:, kv:kv + 1], v[:, kv:kv + 1]
+        else:                               # each query head's KV head
+            kv = torch.arange(first, first + n, device=k.device) // group
+            k, v = k[:, kv], v[:, kv]
+    out = _sdpa(localize(q, mesh, pl), k, v, mask)
+    return DTensor.from_local(out, mesh, pl, run_check=False)
 
 
 def _sdpa_q_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

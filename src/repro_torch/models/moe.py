@@ -30,10 +30,14 @@ dispatch, the counterpart of the reference's ``jax.vmap`` over groups:
 the sort, ranking, dispatch scatter and combine work within a group.
 On a mesh whose data axes split the groups, they run on each device's
 own groups (``distributed/local.py``: DTensor has no strategy for some
-of these ops along a split axis), the expert products carry the
-(groups: data, experts: "model") sharding, and the combine leaves each
-device a partial sum over its experts, which the next op all-reduces,
-as GSPMD lowers the reference's.
+of these ops along a split axis), and each device dispatches into its
+own experts' rows alone: the expert products carry the (groups: data,
+experts: "model") sharding, the combine leaves each device a partial
+sum over its experts, which one all-reduce completes, as GSPMD lowers
+the reference's, and the dispatch buffer's gradient stays on its device
+(the tokens' gradient is a partial sum over the experts, completed once
+with the block's).  The router runs on each device's own tokens, its
+sort local.
 
 No host sync and no data-dependent shape: the capacity comes from shapes,
 the dispatched buffer is ``(E * C + 1, d)`` with the overflow row last,
@@ -45,13 +49,13 @@ no hand-written kernel takes their place.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from repro_torch.distributed.local import complete, localize, shard_span
+from repro_torch.distributed.local import complete, localize, placed, span
 from repro_torch.models import layers
 
 
@@ -90,18 +94,49 @@ def moe_param_axes(cfg) -> Dict[str, Tuple[str, ...]]:
 def _topk_routing(logits: torch.Tensor, k: int
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """logits: (T, E) -> (weights (T, k) f32, expert_ids (T, k) int64,
-    aux_loss 0-dim f32)."""
+    aux_loss 0-dim f32).  On a mesh it runs on each device's own tokens
+    (``_topk_routing_local``)."""
+    if isinstance(logits, DTensor):
+        return _topk_routing_local(logits, k)
     T, E = logits.shape
+    probs, top_p, top_ids, one_hot = _route(logits, k)
+    # Switch aux loss: E * sum_e (fraction_tokens_e * mean_prob_e)
+    tokens_per_expert = one_hot.sum(dim=(0, 1)) / (T * k)
+    mean_prob = probs.mean(dim=0)
+    aux = E * torch.sum(tokens_per_expert * mean_prob)
+    return top_p, top_ids, aux
+
+
+def _route(logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, ...]:
+    """(probabilities (T, E) f32, the top k renormalised (T, k), their
+    experts (T, k), the choices one-hot (T, k, E) f32) of ``logits``."""
     probs = torch.softmax(logits.float(), dim=-1)
     sorted_p, sorted_ids = torch.sort(probs, dim=-1, descending=True,
                                       stable=True)
     top_p, top_ids = sorted_p[:, :k], sorted_ids[:, :k]
     top_p = top_p / top_p.sum(dim=-1, keepdim=True)
-    # Switch aux loss: E * sum_e (fraction_tokens_e * mean_prob_e)
-    one_hot = F.one_hot(top_ids, E).float()                  # (T, k, E)
-    tokens_per_expert = one_hot.sum(dim=(0, 1)) / (T * k)
-    mean_prob = probs.mean(dim=0)
-    aux = E * torch.sum(tokens_per_expert * mean_prob)
+    return probs, top_p, top_ids, F.one_hot(top_ids, logits.shape[-1]).float()
+
+
+def _topk_routing_local(logits: DTensor, k: int
+                        ) -> Tuple[DTensor, DTensor, DTensor]:
+    """``_topk_routing`` on a mesh, on each device's own tokens: the
+    logits' expert axis gathered once, the sort and its backward local
+    (no torch version's propagator sees them), the weights and experts
+    split as the tokens are, and the aux loss's two (E,) sums over the
+    tokens completed by one all-reduce each."""
+    mesh, (T, E) = logits.device_mesh, logits.shape
+    tokens = [p if p.is_shard(0) else Replicate() for p in logits.placements]
+    probs, top_p, top_ids, one_hot = _route(localize(logits, mesh, tokens),
+                                            k)
+    over = [Partial() if p.is_shard(0) else Replicate() for p in tokens]
+    choices, prob_sum = (complete(DTensor.from_local(t, mesh, over,
+                                                     run_check=False))
+                         for t in (one_hot.sum(dim=(0, 1)),
+                                   probs.sum(dim=0)))
+    aux = E * torch.sum(choices / (T * k) * (prob_sum / T))
+    top_p, top_ids = (DTensor.from_local(t, mesh, tokens, run_check=False)
+                      for t in (top_p, top_ids))
     return top_p, top_ids, aux
 
 
@@ -170,17 +205,22 @@ def _moe_tokens(params, xf: torch.Tensor, weights: torch.Tensor,
 
 
 def _dispatch_groups(xg: torch.Tensor, eg: torch.Tensor, capacity: int,
-                     E: int) -> Tuple[torch.Tensor, ...]:
+                     E: int, first: int = 0, rows: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, ...]:
     """The pair-axis half of a grouped dispatch, within each group: xg (G,
-    Tg, d), eg (G, Tg, k) -> (dispatched (G, E * C, d), keep (G, Tg * k),
+    Tg, d), eg (G, Tg, k) -> (dispatched (G, rows, d), keep (G, Tg * k),
     slot (G, Tg * k)).  Each token's row repeated k times (``jnp.repeat``)
-    lands at its pair's slot; dropped pairs at the overflow row, cut
+    lands at its pair's slot where the slot is one of the ``rows`` (all E
+    * C by default) from ``first``: a device's own experts' on a mesh;
+    dropped pairs, and the pairs of other rows, at the overflow row, cut
     off."""
     G, Tg, d = xg.shape
     k = eg.shape[-1]
+    rows = E * capacity if rows is None else rows
     keep, slot = _dispatch_slots(eg.reshape(G, Tg * k), capacity, E)
-    safe = torch.where(keep, slot, E * capacity)             # overflow row
-    dispatched = xg.new_zeros((G, E * capacity + 1, d)).scatter(
+    here = keep & (slot >= first) & (slot < first + rows)
+    safe = torch.where(here, slot - first, rows)             # overflow row
+    dispatched = xg.new_zeros((G, rows + 1, d)).scatter(
         1, safe[..., None].expand(G, Tg * k, d),
         xg.repeat_interleave(k, dim=1))
     return dispatched[:, :-1], keep, slot
@@ -229,17 +269,27 @@ def _moe_groups(params, xg: torch.Tensor, wg: torch.Tensor,
                 eg: torch.Tensor, capacity: int, E: int) -> torch.Tensor:
     """G dispatch groups as one batched dispatch: xg (G, Tg, d), wg / eg
     (G, Tg, k) -> (G, Tg, d).  On a mesh the pair-axis halves run on each
-    device's own groups (the placements of xg's group axis) and, for the
-    combine, its own experts; the combine's result is then a partial sum
-    over the mesh axes that split the experts."""
+    device's own groups (the placements of xg's group axis) and its own
+    experts (the mesh axes that split the experts' weights and not the
+    groups): the dispatch writes only its experts' rows, so the dispatch
+    buffer's gradient stays on the device, and the tokens' gradient, like
+    the combine's result, is a partial sum over the experts' axes."""
     G, Tg, d = xg.shape
     C = capacity
     if isinstance(xg, DTensor):
         mesh, groups = xg.device_mesh, xg.placements
-        dispatched, keep, slot = (
-            DTensor.from_local(t, mesh, groups, run_check=False)
-            for t in _dispatch_groups(localize(xg, mesh, groups),
-                                      localize(eg, mesh, groups), C, E))
+        experts = [g if g.is_shard(0) else Shard(1) if w.is_shard(0)
+                   else Replicate()
+                   for g, w in zip(groups, params["gate"].placements)]
+        # what reads this device's experts' rows alone: a partial sum
+        # over the experts' axes
+        partial = [Partial() if p.is_shard(1) else p for p in experts]
+        first, rows = span(mesh, experts, 1, E * C)
+        dispatched, keep, slot = _dispatch_groups(
+            localize(xg, mesh, groups, partial), localize(eg, mesh, groups),
+            C, E, first, rows)
+        dispatched = DTensor.from_local(dispatched, mesh, experts,
+                                        run_check=False)
     else:
         dispatched, keep, slot = _dispatch_groups(xg, eg, C, E)
     # (G, E, C, d) -> (E, G * C, d): the experts' batched products
@@ -251,19 +301,11 @@ def _moe_groups(params, xg: torch.Tensor, wg: torch.Tensor,
         G, E * C, d)
     if not isinstance(flat_out, DTensor):
         return _combine_groups(flat_out, keep, slot, wg, 0, xg.dtype)
-    # each device's groups, and its experts where a mesh axis splits them
-    experts = [g if g.is_shard(0) else p if p.is_shard(1) else Replicate()
-               for g, p in zip(groups, flat_out.placements)]
-    flat_out = flat_out.redistribute(mesh, experts)
-    first, _ = shard_span(flat_out, 1)
-    # the combine reads the weights of this device's experts' pairs
-    # alone: their gradient is a partial sum over the experts' axes
-    wg = localize(wg, mesh, groups, [Partial() if p.is_shard(1) else g
-                                     for g, p in zip(groups, experts)])
-    out = _combine_groups(flat_out.to_local(), keep.to_local(),
-                          slot.to_local(), wg, first, xg.dtype)
-    return DTensor.from_local(out, mesh, [Partial() if p.is_shard(1) else p
-                                          for p in experts], run_check=False)
+    # the combine reads the weights of this device's experts' pairs alone
+    out = _combine_groups(localize(flat_out, mesh, experts), keep, slot,
+                          localize(wg, mesh, groups, partial), first,
+                          xg.dtype)
+    return DTensor.from_local(out, mesh, partial, run_check=False)
 
 
 def apply_moe(params, cfg, x: torch.Tensor
@@ -293,7 +335,7 @@ def apply_moe(params, cfg, x: torch.Tensor
     capacity = max(int(math.ceil(Tg * k / E * moe.capacity_factor)), k)
     if isinstance(xf, DTensor):
         groups = _group_placements(xf, G)
-        xf, weights, expert_ids = (t.redistribute(xf.device_mesh, groups)
+        xf, weights, expert_ids = (placed(t, xf.device_mesh, groups)
                                    for t in (xf, weights, expert_ids))
     out = _moe_groups(params, xf.reshape(G, Tg, d),
                       weights.reshape(G, Tg, k),

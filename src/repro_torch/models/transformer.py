@@ -23,6 +23,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.local import complete_grad, whole
 from repro_torch.models import attention, layers, moe as moe_lib
 
 
@@ -122,11 +123,25 @@ def _ffn(cfg, bp, h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return layers.swiglu_mlp(bp["mlp"], h), None
 
 
+def _sub_block_input(h: torch.Tensor) -> torch.Tensor:
+    """A sub-block's normed input on a mesh (plain tensors pass as they
+    are): whole over the sequence, where ``shard_activations_seq`` splits
+    the residual there, gathered once here rather than by each
+    projection; and its gradient completed once (``complete_grad``), the
+    projections' partial sums over "model" summed first.  (Split on the
+    sequence, the gather's backward reduce-scatters it onto the split.)"""
+    return whole(complete_grad(h), 1)
+
+
 def _block_train(cfg, x: torch.Tensor, positions: torch.Tensor,
                  bp) -> Tuple[torch.Tensor, torch.Tensor]:
-    h = layers.rms_norm(x, bp["attn_norm"], cfg.rms_norm_eps)
+    """One block of the training forward, each sub-block's normed input
+    made ready for the mesh by ``_sub_block_input``."""
+    h = _sub_block_input(layers.rms_norm(x, bp["attn_norm"],
+                                         cfg.rms_norm_eps))
     x = x + attention.attend_train(bp["attn"], cfg, h, positions)
-    h = layers.rms_norm(x, bp["mlp_norm"], cfg.rms_norm_eps)
+    h = _sub_block_input(layers.rms_norm(x, bp["mlp_norm"],
+                                         cfg.rms_norm_eps))
     out, aux = _ffn(cfg, bp, h)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -171,7 +186,9 @@ def forward_train(params, cfg, x_embeds: torch.Tensor,
         x, a = layers.remat_call(remat, _block_train, cfg, x, positions, bp)
         x = _seq_shard(cfg, x)
         aux = aux + a
-    return layers.rms_norm(x, params["final_norm"], cfg.rms_norm_eps), aux
+    # the unembedding's input, as a sub-block's
+    return _sub_block_input(layers.rms_norm(x, params["final_norm"],
+                                            cfg.rms_norm_eps)), aux
 
 
 def embed_vlm(params, cfg, tokens: torch.Tensor,

@@ -263,12 +263,15 @@ def test_the_kv_split_gathers_only_the_heads_axis(released, heads):
 def test_the_query_group_split_gathers_only_the_heads_axis(released, kvh,
                                                            H):
     """``_sdpa``'s (B, H, L, D) queries split over "data" (batch) and
-    "model" (heads) into KV groups: where 2 "model" shards cut a group
-    (1 or 3 KV heads) only "model" is gathered, once, before the split; no
-    fallback either way, the batch stays split, and rank 0's rows equal
-    the plain attention's (tolerance 1e-6, f32).  Backward, against a
-    gradient split over the heads as the output projection's is: no
-    fallback, and rank 0's query gradient is the plain one's rows."""
+    "model" (heads) into KV groups: whether 2 "model" shards cut a group
+    (1 or 3 KV heads) or not (2), nothing is gathered: each shard attends
+    its own query heads against their KV heads' k and v, and the output
+    keeps q's split; no fallback either way, the batch stays split, and
+    rank 0's rows and heads equal the plain attention's (tolerance 1e-6,
+    f32).
+    Backward, against a gradient split over the heads as the output
+    projection's is: no fallback, and rank 0's query gradient is the
+    plain one's rows."""
     Lq, hd = 3, 4
     rng = np.random.default_rng(kvh)
     q = rng.standard_normal((B, H // 2, Lq, hd)).astype(np.float32)
@@ -295,13 +298,11 @@ def test_the_query_group_split_gathers_only_the_heads_axis(released, kvh,
     with counter, fallback, implicit_replication():   # the plain mask
         out = attention._sdpa(qd, kd, vd, mask)
     assert not fallback.fallbacks
-    cut = kvh % 2 != 0
-    if cut:             # rank 0's batch rows, every head: one all-gather
-        assert counter.collectives().bytes_by_op == {
-            "all-gather": qd.to_local().numel() * 2 * 4}
-    assert out.placements[0] == Shard(0)
-    torch.testing.assert_close(out.to_local() if cut else out.full_tensor()[
-        :B // 2], want[:B // 2], atol=1e-6, rtol=1e-6)
+    # rank 0's batch rows and heads, no collective
+    assert counter.collectives().bytes_by_op == {}
+    assert out.placements == tuple(heads)
+    torch.testing.assert_close(out.to_local(), want[:B // 2, :H // 2],
+                               atol=1e-6, rtol=1e-6)
     with fallback, implicit_replication():
         (out * wd).sum().backward()
     assert not fallback.fallbacks
