@@ -11,6 +11,7 @@ import dataclasses
 import math
 from typing import Dict, List, Optional, Sequence
 
+from repro_torch import tracing
 from repro_torch.core.request_group import RequestGroup
 from repro_torch.core.rwt_estimator import HardwareProfile, RWTEstimator
 from repro_torch.core.solver import GroupSpec, InstanceSpec, Solution, solve
@@ -112,6 +113,7 @@ class GlobalScheduler:
             inst.virtual_queue.groups.append(g)
 
     # ------------------------------------------------------------------
+    @tracing.spanned("qlm.predict_violation")
     def predict_violation(self, instances: Sequence[InstanceInfo],
                           now: float) -> bool:
         """Walk each VQ accumulating RWT drain estimates; violation iff some

@@ -16,6 +16,7 @@ from __future__ import annotations
 import contextlib
 from typing import Callable, Dict, Optional, Tuple
 
+from repro_torch import tracing
 from repro_torch.core.request import Request
 from repro_torch.core.virtual_queue import VirtualQueue
 from repro_torch.serving.engine import ContinuousBatchingEngine
@@ -45,6 +46,8 @@ class QLMAgent:
         engine.pull_source = self._pull
 
     # -- request pulling LSO ------------------------------------------------
+    @tracing.spanned("agent.pull",
+                     req=lambda r: None if r is None else r.req_id)
     def _pull(self) -> Optional[Request]:
         with self.queue_lock:
             pushed = self.engine.take_pushback()
@@ -64,6 +67,7 @@ class QLMAgent:
             return req
 
     # -- eviction + swap LSOs -------------------------------------------------
+    @tracing.spanned("agent.sync")
     def sync(self) -> None:
         """Reconcile engine state with the (possibly re-ordered) VQ."""
         with self.queue_lock:

@@ -14,6 +14,7 @@ import math
 import threading
 from typing import Callable, List, Optional, Sequence
 
+from repro_torch import tracing
 from repro_torch.core import routing
 from repro_torch.core.global_scheduler import GlobalScheduler, InstanceInfo
 from repro_torch.core.request import Request
@@ -813,6 +814,7 @@ class QLMController:
 
     # ------------------------------------------------------------------
     @_locked
+    @tracing.spanned("qlm.submit")
     def submit(self, req: Request, now: float) -> bool:
         """API-gateway entry: enqueue, classify into a group, reschedule if
         the RWT estimator predicts a violation.
@@ -899,6 +901,7 @@ class QLMController:
 
     # ------------------------------------------------------------------
     @_locked
+    @tracing.spanned("qlm.reschedule")
     def reschedule(self, now: float):
         """Re-solve over the SCHEDULABLE instances only: dead/drained VQs
         were emptied when the instance departed and must stay empty, and
@@ -913,6 +916,7 @@ class QLMController:
                                        self.schedulable_instances(), now)
 
     @_locked
+    @tracing.spanned("qlm.tick")
     def tick(self, now: float) -> bool:
         """Periodic violation check (returns True if it rescheduled).
 
@@ -940,6 +944,7 @@ class QLMController:
 
     _inv_sampler = None
 
+    @tracing.spanned("qlm.check_invariants")
     def _check_invariants(self) -> None:
         """Tick-boundary hook: queue-layer state (group placement, member
         ownership) is only quiescent between scheduler actions.

@@ -39,6 +39,10 @@ class Request:
     # lifecycle (filled by the runtime / simulator)
     group_id: Optional[int] = None
     first_token_time: Optional[float] = None
+    # when a slot first took the request, on the engine's clock: the end
+    # of its wait in the queue.  Kept across eviction, resume and
+    # restart(), as first_token_time is
+    admit_time: Optional[float] = None
     completion_time: Optional[float] = None
     output_tokens: List[int] = dataclasses.field(default_factory=list)
     n_evictions: int = 0
@@ -130,7 +134,8 @@ class Request:
         already streamed.  ``first_token_time`` is KEPT when already
         recorded — the first token genuinely reached the client, and
         resetting it would let a crash-and-retry double-count as a fresh
-        (later, possibly SLO-missing) first token in attainment."""
+        (later, possibly SLO-missing) first token in attainment.
+        ``admit_time`` is kept likewise: the request left the queue then."""
         self.output_tokens.clear()
         self.generated = 0
         self._prefill_done = 0

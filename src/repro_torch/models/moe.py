@@ -55,6 +55,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from repro_torch import tracing
 from repro_torch.distributed.local import complete, localize, placed, span
 from repro_torch.models import layers
 
@@ -177,30 +178,33 @@ def _moe_tokens(params, xf: torch.Tensor, weights: torch.Tensor,
     """Scatter dispatch, expert SwiGLU and ordered combine for one flat
     token block xf: (T, d)."""
     T, d = xf.shape
-    flat_expert = expert_ids.reshape(-1)                     # (T*k,)
-    flat_weight = weights.reshape(-1)
-    flat_token = torch.arange(T, device=xf.device)[:, None].expand(
-        T, k).reshape(-1)                                   # jnp.repeat
+    with tracing.span("moe.dispatch"):
+        flat_expert = expert_ids.reshape(-1)                 # (T*k,)
+        flat_token = torch.arange(T, device=xf.device)[:, None].expand(
+            T, k).reshape(-1)                               # jnp.repeat
 
-    keep, slot = _dispatch_slots(flat_expert, capacity, E)
-    safe_slot = torch.where(keep, slot, E * capacity)        # overflow row
+        keep, slot = _dispatch_slots(flat_expert, capacity, E)
+        safe_slot = torch.where(keep, slot, E * capacity)    # overflow row
 
-    dispatched = xf.new_zeros((E * capacity + 1, d))
-    dispatched = dispatched.index_put((safe_slot,), xf[flat_token])
-    dispatched = dispatched[:-1].reshape(E, capacity, d)
+        dispatched = xf.new_zeros((E * capacity + 1, d))
+        dispatched = dispatched.index_put((safe_slot,), xf[flat_token])
+        dispatched = dispatched[:-1].reshape(E, capacity, d)
 
-    gate = F.silu(_expert_mm(dispatched, params["gate"]))
-    up = _expert_mm(dispatched, params["up"])
-    expert_out = _expert_mm((gate * up).to(xf.dtype), params["down"])
+    with tracing.span("moe.experts"):
+        gate = F.silu(_expert_mm(dispatched, params["gate"]))
+        up = _expert_mm(dispatched, params["up"])
+        expert_out = _expert_mm((gate * up).to(xf.dtype), params["down"])
 
-    flat_out = expert_out.reshape(E * capacity, d)
-    pair_out = torch.where(keep[:, None],
-                           flat_out[torch.where(keep, slot, 0)], 0.0)
-    pair_out = (pair_out * flat_weight[:, None].to(pair_out.dtype)
-                ).to(xf.dtype).reshape(T, k, d)
-    out = torch.zeros((T, d), dtype=xf.dtype, device=xf.device)
-    for j in range(k):
-        out = out + pair_out[:, j]
+    with tracing.span("moe.combine"):
+        flat_weight = weights.reshape(-1)
+        flat_out = expert_out.reshape(E * capacity, d)
+        pair_out = torch.where(keep[:, None],
+                               flat_out[torch.where(keep, slot, 0)], 0.0)
+        pair_out = (pair_out * flat_weight[:, None].to(pair_out.dtype)
+                    ).to(xf.dtype).reshape(T, k, d)
+        out = torch.zeros((T, d), dtype=xf.dtype, device=xf.device)
+        for j in range(k):
+            out = out + pair_out[:, j]
     return out
 
 
@@ -276,36 +280,41 @@ def _moe_groups(params, xg: torch.Tensor, wg: torch.Tensor,
     the combine's result, is a partial sum over the experts' axes."""
     G, Tg, d = xg.shape
     C = capacity
-    if isinstance(xg, DTensor):
-        mesh, groups = xg.device_mesh, xg.placements
-        experts = [g if g.is_shard(0) else Shard(1) if w.is_shard(0)
-                   else Replicate()
-                   for g, w in zip(groups, params["gate"].placements)]
-        # what reads this device's experts' rows alone: a partial sum
-        # over the experts' axes
-        partial = [Partial() if p.is_shard(1) else p for p in experts]
-        first, rows = span(mesh, experts, 1, E * C)
-        dispatched, keep, slot = _dispatch_groups(
-            localize(xg, mesh, groups, partial), localize(eg, mesh, groups),
-            C, E, first, rows)
-        dispatched = DTensor.from_local(dispatched, mesh, experts,
-                                        run_check=False)
-    else:
-        dispatched, keep, slot = _dispatch_groups(xg, eg, C, E)
-    # (G, E, C, d) -> (E, G * C, d): the experts' batched products
-    a = dispatched.reshape(G, E, C, d).transpose(0, 1).reshape(E, G * C, d)
-    gate = F.silu(_expert_mm(a, params["gate"]))
-    up = _expert_mm(a, params["up"])
-    expert_out = _expert_mm((gate * up).to(xg.dtype), params["down"])
-    flat_out = expert_out.reshape(E, G, C, d).transpose(0, 1).reshape(
-        G, E * C, d)
-    if not isinstance(flat_out, DTensor):
-        return _combine_groups(flat_out, keep, slot, wg, 0, xg.dtype)
-    # the combine reads the weights of this device's experts' pairs alone
-    out = _combine_groups(localize(flat_out, mesh, experts), keep, slot,
-                          localize(wg, mesh, groups, partial), first,
-                          xg.dtype)
-    return DTensor.from_local(out, mesh, partial, run_check=False)
+    with tracing.span("moe.dispatch"):
+        if isinstance(xg, DTensor):
+            mesh, groups = xg.device_mesh, xg.placements
+            experts = [g if g.is_shard(0) else Shard(1) if w.is_shard(0)
+                       else Replicate()
+                       for g, w in zip(groups, params["gate"].placements)]
+            # what reads this device's experts' rows alone: a partial sum
+            # over the experts' axes
+            partial = [Partial() if p.is_shard(1) else p for p in experts]
+            first, rows = span(mesh, experts, 1, E * C)
+            dispatched, keep, slot = _dispatch_groups(
+                localize(xg, mesh, groups, partial),
+                localize(eg, mesh, groups), C, E, first, rows)
+            dispatched = DTensor.from_local(dispatched, mesh, experts,
+                                            run_check=False)
+        else:
+            dispatched, keep, slot = _dispatch_groups(xg, eg, C, E)
+    with tracing.span("moe.experts"):
+        # (G, E, C, d) -> (E, G * C, d): the experts' batched products
+        a = dispatched.reshape(G, E, C, d).transpose(0, 1).reshape(
+            E, G * C, d)
+        gate = F.silu(_expert_mm(a, params["gate"]))
+        up = _expert_mm(a, params["up"])
+        expert_out = _expert_mm((gate * up).to(xg.dtype), params["down"])
+        flat_out = expert_out.reshape(E, G, C, d).transpose(0, 1).reshape(
+            G, E * C, d)
+    with tracing.span("moe.combine"):
+        if not isinstance(flat_out, DTensor):
+            return _combine_groups(flat_out, keep, slot, wg, 0, xg.dtype)
+        # the combine reads the weights of this device's experts' pairs
+        # alone
+        out = _combine_groups(localize(flat_out, mesh, experts), keep, slot,
+                              localize(wg, mesh, groups, partial), first,
+                              xg.dtype)
+        return DTensor.from_local(out, mesh, partial, run_check=False)
 
 
 def apply_moe(params, cfg, x: torch.Tensor
@@ -322,8 +331,9 @@ def apply_moe(params, cfg, x: torch.Tensor
     E, k = moe.num_experts, moe.experts_per_token
     xf = x.reshape(T, d)
 
-    logits = xf @ params["router"]
-    weights, expert_ids, aux = _topk_routing(logits, k)     # (T, k)
+    with tracing.span("moe.route"):
+        logits = xf @ params["router"]
+        weights, expert_ids, aux = _topk_routing(logits, k)  # (T, k)
 
     G = moe.dispatch_groups or 1
     if G == 1 or T % G != 0:

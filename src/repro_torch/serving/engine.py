@@ -94,6 +94,7 @@ from typing import Any, Callable, ClassVar, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.request import Request
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import cache_len
@@ -521,10 +522,16 @@ class ContinuousBatchingEngine:
         On the chunked path admission only reserves the first chunk's KV
         blocks and marks the slot mid-prefill; the compute happens inside
         ``step()``.  An arch without chunked prefill (the SSM) is
-        prefilled here, in one call."""
+        prefilled here, in one call.  The first admission stamps
+        ``req.admit_time``."""
+        with tracing.span("engine.admit", req=req.req_id):
+            return self._admit(req, extras)
+
+    def _admit(self, req: Request, extras: Optional[Dict[str, Any]]) -> bool:
         slot = self._free_slot()
         if slot is None or not self.can_admit(req):
             return False
+        taken = self.clock()
         ex = extras or req.extras or {}
         if ex and self.paged:
             # only reachable by an explicit admit(req, extras={...}):
@@ -632,6 +639,8 @@ class ContinuousBatchingEngine:
             # the chunked path's first-token finish check (EOS on the
             # prefill token, max_new_tokens == 1); may free the slot
             self._finish_if_done(slot, tok, now, self._admit_completed)
+        if req.admit_time is None:
+            req.admit_time = taken
         self.stats.prefill_time += self._wall() - t0
         return True
 
@@ -827,6 +836,7 @@ class ContinuousBatchingEngine:
         clone.output_tokens = list(src.output_tokens)
         clone.generated = src.generated
         clone.first_token_time = src.first_token_time
+        clone.admit_time = src.admit_time
         self.block_mgr.fork(src.req_id, clone.req_id)
         self.block_mgr.bind_slot(clone.req_id, new_slot)
         self.slots[new_slot] = clone
@@ -916,64 +926,69 @@ class ContinuousBatchingEngine:
         if not work:
             return
         t0 = self._wall()
-        C = self._chunk_quantum()
-        chunks: Dict[int, Tuple[np.ndarray, int, bool]] = {}
-        for i in work:
-            req = self.slots[i]
-            pos = int(self.prefill_pos[i])
-            n = min(C, req.prompt_len - pos)
-            final = pos + n >= req.prompt_len
-            need = req.prompt_len + 1 if final else pos + n
-            if not self.block_mgr.extend(req.req_id, need):
-                # mid-prefill OOM: preempt; the snapshot keeps chunk progress
-                self.stats.preemptions += 1
-                self.evict_slot(i)
-                req._in_flight = False
-                continue
-            chunk = np.asarray(req.prompt_tokens[pos:pos + n], np.int32)  # qlint: disable=host-sync-in-hot-path -- host prompt slice -> chunk array, no device sync
-            chunks[i] = (chunk, n, final)
-        if not chunks:
-            return
-        # COW copies from the extends above land before this dispatch
-        self._apply_cow()
-        bucket = self._bucket_for(max(n for _, n, _ in chunks.values()))
-        tokens = np.zeros((self.cfg.max_slots, bucket), np.int32)
-        starts = np.zeros(self.cfg.max_slots, np.int32)
-        valid = np.zeros(self.cfg.max_slots, np.int32)
-        for i, (chunk, n, _) in chunks.items():
-            tokens[i, :n] = chunk
-            starts[i] = self.prefill_pos[i]
-            valid[i] = n
-        if self.paged:
-            # the table is refreshed AFTER the extends above
-            logits, self.cache = self.model.prefill_chunk_paged(
-                self.params, self.cache, self._to_device(tokens),
-                self._to_device(starts), self._to_device(valid),
-                self._device_block_table())
-        else:
-            logits, self.cache = self.model.prefill_chunk(
-                self.params, self.cache, self._to_device(tokens),
-                self._to_device(starts), self._to_device(valid))
-        toks_out = torch.argmax(logits, dim=-1).cpu().numpy()  # qlint: disable=host-sync-in-hot-path -- the round's single device->host result copy, inside the timed region
-        self._sync()  # the cache writes too: prefill_time feeds the RWT
-        self.stats.prefill_chunks += 1
-        now = self.clock()
-        for i, (_, n, final) in chunks.items():
-            req = self.slots[i]
-            self.prefill_pos[i] += n
-            self.lengths[i] = self.prefill_pos[i]
-            if self.prefix_sharing:
-                self.block_mgr.register_prefix(
-                    req.req_id, req.prompt_tokens, int(self.prefill_pos[i]))
-            if final:
-                tok = int(toks_out[i])
-                if req.first_token_time is None:
-                    req.first_token_time = now
-                req.output_tokens.append(tok)
-                req.generated += 1
-                self.stats.prefills += 1
-                self._finish_if_done(i, tok, now, done)
-        self.stats.prefill_time += self._wall() - t0
+        with tracing.span("engine.prefill.prepare"):
+            C = self._chunk_quantum()
+            chunks: Dict[int, Tuple[np.ndarray, int, bool]] = {}
+            for i in work:
+                req = self.slots[i]
+                pos = int(self.prefill_pos[i])
+                n = min(C, req.prompt_len - pos)
+                final = pos + n >= req.prompt_len
+                need = req.prompt_len + 1 if final else pos + n
+                if not self.block_mgr.extend(req.req_id, need):
+                    # mid-prefill OOM: preempt; the snapshot keeps chunk
+                    # progress
+                    self.stats.preemptions += 1
+                    self.evict_slot(i)
+                    req._in_flight = False
+                    continue
+                chunk = np.asarray(req.prompt_tokens[pos:pos + n], np.int32)  # qlint: disable=host-sync-in-hot-path -- host prompt slice -> chunk array, no device sync
+                chunks[i] = (chunk, n, final)
+            if not chunks:
+                return
+            # COW copies from the extends above land before this dispatch
+            self._apply_cow()
+            bucket = self._bucket_for(max(n for _, n, _ in chunks.values()))
+            tokens = np.zeros((self.cfg.max_slots, bucket), np.int32)
+            starts = np.zeros(self.cfg.max_slots, np.int32)
+            valid = np.zeros(self.cfg.max_slots, np.int32)
+            for i, (chunk, n, _) in chunks.items():
+                tokens[i, :n] = chunk
+                starts[i] = self.prefill_pos[i]
+                valid[i] = n
+            args = (self._to_device(tokens), self._to_device(starts),
+                    self._to_device(valid))
+            if self.paged:
+                # the table is refreshed AFTER the extends above
+                args += (self._device_block_table(),)
+            step = self.model.prefill_chunk_paged if self.paged \
+                else self.model.prefill_chunk
+        with tracing.span("engine.prefill.launch", rows=int(valid.sum()),
+                          padded=tokens.size):
+            logits, self.cache = step(self.params, self.cache, *args)
+        with tracing.span("engine.prefill.wait"):
+            toks_out = torch.argmax(logits, dim=-1).cpu().numpy()  # qlint: disable=host-sync-in-hot-path -- the round's single device->host result copy, inside the timed region
+            self._sync()  # the cache writes too: prefill_time feeds the RWT
+        with tracing.span("engine.prefill.commit"):
+            self.stats.prefill_chunks += 1
+            now = self.clock()
+            for i, (_, n, final) in chunks.items():
+                req = self.slots[i]
+                self.prefill_pos[i] += n
+                self.lengths[i] = self.prefill_pos[i]
+                if self.prefix_sharing:
+                    self.block_mgr.register_prefix(
+                        req.req_id, req.prompt_tokens,
+                        int(self.prefill_pos[i]))
+                if final:
+                    tok = int(toks_out[i])
+                    if req.first_token_time is None:
+                        req.first_token_time = now
+                    req.output_tokens.append(tok)
+                    req.generated += 1
+                    self.stats.prefills += 1
+                    self._finish_if_done(i, tok, now, done)
+            self.stats.prefill_time += self._wall() - t0
 
     def _last_tokens(self, active: List[int]) -> np.ndarray:
         tokens = np.zeros(self.cfg.max_slots, np.int32)
@@ -1001,33 +1016,37 @@ class ContinuousBatchingEngine:
         if not active:
             return
         t0 = self._wall()
-        # pending COW copies land before this dispatch writes their pages
-        self._apply_cow()
-        logits = self._decode_step(self._to_device(self._last_tokens(active)),
-                                   self._to_device(self.lengths))
-        next_tokens = torch.argmax(logits, dim=-1).cpu().numpy()  # qlint: disable=host-sync-in-hot-path -- the round's single device->host result copy, inside the timed region
-        self._sync()
+        with tracing.span("engine.decode.prepare"):
+            # pending COW copies land before this dispatch writes their pages
+            self._apply_cow()
+            tokens = self._to_device(self._last_tokens(active))
+            lengths = self._to_device(self.lengths)
+        with tracing.span("engine.decode.launch", iters=1):
+            logits = self._decode_step(tokens, lengths)
+        with tracing.span("engine.decode.wait"):
+            next_tokens = torch.argmax(logits, dim=-1).cpu().numpy()  # qlint: disable=host-sync-in-hot-path -- the round's single device->host result copy, inside the timed region
+            self._sync()
         self.stats.decode_iterations += 1
         self.stats.decode_time += self._wall() - t0
-
-        now = self.clock()
-        for i in active:
-            req = self.slots[i]
-            # record the token FIRST: its KV is already written
-            self.lengths[i] += 1
-            tok = int(next_tokens[i])
-            req.output_tokens.append(tok)
-            req.generated += 1
-            self.stats.tokens_generated += 1
-            if req.first_token_time is None:
-                req.first_token_time = now
-            if self._finish_if_done(i, tok, now, done):
-                continue
-            # reserve the NEXT decode step's KV slot; preempt on OOM
-            if not self.block_mgr.append_token(req.req_id):
-                self.stats.preemptions += 1
-                self.evict_slot(i)
-                req._in_flight = False
+        with tracing.span("engine.decode.commit"):
+            now = self.clock()
+            for i in active:
+                req = self.slots[i]
+                # record the token FIRST: its KV is already written
+                self.lengths[i] += 1
+                tok = int(next_tokens[i])
+                req.output_tokens.append(tok)
+                req.generated += 1
+                self.stats.tokens_generated += 1
+                if req.first_token_time is None:
+                    req.first_token_time = now
+                if self._finish_if_done(i, tok, now, done):
+                    continue
+                # reserve the NEXT decode step's KV slot; preempt on OOM
+                if not self.block_mgr.append_token(req.req_id):
+                    self.stats.preemptions += 1
+                    self.evict_slot(i)
+                    req._in_flight = False
 
     def _plan_burst(self, active: List[int], k: int) -> int:
         """Largest burst width n <= k whose KV writes the pool can cover now
@@ -1109,48 +1128,55 @@ class ContinuousBatchingEngine:
         active = self.decode_slots()
         if not active:
             return
-        n = self._plan_burst(active, min(k, max(self.cfg.decode_burst, 1)))
+        with tracing.span("engine.decode.prepare"):
+            n = self._plan_burst(active,
+                                 min(k, max(self.cfg.decode_burst, 1)))
+            if n:
+                t0 = self._wall()
+                self._apply_cow()
+                remaining = np.zeros(self.cfg.max_slots, np.int32)
+                active_mask = np.zeros(self.cfg.max_slots, bool)
+                for i in active:
+                    r = self.slots[i]
+                    remaining[i] = r.max_new_tokens - r.generated
+                    active_mask[i] = True
+                args = (self._to_device(self._last_tokens(active)),
+                        self._to_device(self.lengths),
+                        self._to_device(remaining),
+                        self._to_device(active_mask))
         if n == 0:
             self._decode_round(done)
             return
-        t0 = self._wall()
-        self._apply_cow()
-        remaining = np.zeros(self.cfg.max_slots, np.int32)
-        active_mask = np.zeros(self.cfg.max_slots, bool)
-        for i in active:
-            r = self.slots[i]
-            remaining[i] = r.max_new_tokens - r.generated
-            active_mask[i] = True
-        out = self._decode_burst(
-            n, self._to_device(self._last_tokens(active)),
-            self._to_device(self.lengths), self._to_device(remaining),
-            self._to_device(active_mask))
-        out = out.cpu().numpy()  # qlint: disable=host-sync-in-hot-path -- the burst's single device->host result copy, inside the timed region
-        self._sync()
+        with tracing.span("engine.decode.launch", iters=n):
+            out = self._decode_burst(n, *args)
+        with tracing.span("engine.decode.wait"):
+            out = out.cpu().numpy()  # qlint: disable=host-sync-in-hot-path -- the burst's single device->host result copy, inside the timed region
+            self._sync()
         executed = int((out >= 0).any(axis=1).sum())
         self.stats.decode_iterations += executed
         self.stats.decode_time += self._wall() - t0
-
-        now = self.clock()
-        for i in active:
-            req = self.slots[i]
-            for j in range(executed):
-                tok = int(out[j, i])
-                if tok < 0:
-                    break  # slot went inactive on device at iteration j
-                self.lengths[i] += 1
-                req.output_tokens.append(tok)
-                req.generated += 1
-                self.stats.tokens_generated += 1
-                if req.first_token_time is None:
-                    req.first_token_time = now
-                if self._finish_if_done(i, tok, now, done):
-                    break
-            else:
-                # survived the whole burst: the up-front reservation left
-                # exactly the single-step invariant (lengths + 1 tokens)
-                assert self.block_mgr.seq_tokens(req.req_id) \
-                    == int(self.lengths[i]) + 1
+        with tracing.span("engine.decode.commit"):
+            now = self.clock()
+            for i in active:
+                req = self.slots[i]
+                for j in range(executed):
+                    tok = int(out[j, i])
+                    if tok < 0:
+                        break  # slot went inactive on device at iteration j
+                    self.lengths[i] += 1
+                    req.output_tokens.append(tok)
+                    req.generated += 1
+                    self.stats.tokens_generated += 1
+                    if req.first_token_time is None:
+                        req.first_token_time = now
+                    if self._finish_if_done(i, tok, now, done):
+                        break
+                else:
+                    # survived the whole burst: the up-front reservation
+                    # left exactly the single-step invariant (lengths + 1
+                    # tokens)
+                    assert self.block_mgr.seq_tokens(req.req_id) \
+                        == int(self.lengths[i]) + 1
 
     def _admit_from_pull(self) -> None:
         """Request pulling: admit while capacity allows; a refused request
