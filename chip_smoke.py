@@ -1447,7 +1447,7 @@ def step_timings(registry) -> None:
     for label, (model, params), paged in registry:
         if paged:
             cache = model.init_paged_cache(N, bs, torch.bfloat16, "cuda")
-            steps = (("decode step", lambda: model.decode_step_paged(
+            steps = (("decode step", lambda: model.decode_step_paged.eager(
                 params, cache, tokens, lengths, bt)),
                 ("prefill chunk round", lambda: model.prefill_chunk_paged(
                     params, cache, chunk, starts, valid, bt)))
@@ -1462,6 +1462,11 @@ def step_timings(registry) -> None:
             eager = eager_ms(fn, iters=10)
             log(f"  {label} {name}: device {device:.3f} ms, eager "
                 f"{eager:.3f} ms, host share {1 - device / eager:.3f}")
+        if paged:
+            replayed = eager_ms(lambda: model.decode_step_paged(
+                params, cache, tokens, lengths, bt), iters=10)
+            log(f"  {label} decode step as the engine calls it (a CUDA-graph "
+                f"replay from Python): {replayed:.3f} ms")
         del cache
         torch.cuda.empty_cache()
 
@@ -1486,8 +1491,8 @@ def long_step_timings(model, quant, params) -> None:
         for layout, make, step in (
                 ("page pool", lambda: m.init_paged_cache(
                     B * nb, bs, torch.bfloat16, "cuda"),
-                 lambda c: m.decode_step_paged(params, c, tokens, lengths,
-                                               bt)),
+                 lambda c: m.decode_step_paged.eager(params, c, tokens,
+                                                     lengths, bt)),
                 ("dense", lambda: m.init_cache(B, L, torch.bfloat16, "cuda"),
                  lambda c: m.decode_step(params, c, tokens, lengths))):
             cache = make()
@@ -2436,7 +2441,8 @@ def moe_step_timing(tag, label, model, params) -> None:
     bt = torch.arange(B * nb, dtype=torch.int32, device="cuda").reshape(B, nb)
     tokens = torch.arange(B, dtype=torch.int32, device="cuda")
     lengths = torch.full((B,), 40, dtype=torch.int32, device="cuda")
-    fn = lambda: model.decode_step_paged(params, cache, tokens, lengths, bt)
+    fn = lambda: model.decode_step_paged.eager(params, cache, tokens, lengths,
+                                               bt)
     device = time_ms(fn, iters=3, replays=3)
     eager = eager_ms(fn, iters=5)
     nbytes = sum(t.numel() * t.element_size() for name, t in params.items()
@@ -2483,10 +2489,14 @@ def _drop_counting(model, calls):
             calls.append((name, drops))
             return out
         return run
-    return dataclasses.replace(model, **{
-        name: rec(name, getattr(model, name)) for name in (
-            "prefill", "prefill_chunk", "decode_step", "prefill_chunk_paged",
-            "decode_step_paged") if getattr(model, name) is not None})
+    fns = {name: getattr(model, name) for name in (
+        "prefill", "prefill_chunk", "decode_step", "prefill_chunk_paged",
+        "decode_step_paged") if getattr(model, name) is not None}
+    # a decode step replayed from its CUDA graph runs no Python, so it
+    # gives no keep masks: the step runs op by op here
+    fns["decode_step_paged"] = model.decode_step_paged.eager
+    return dataclasses.replace(model, **{name: rec(name, fn)
+                                         for name, fn in fns.items()})
 
 
 _KEEPS = []

@@ -41,6 +41,10 @@ PyTorch; on CUDA tensors they launch the kernel or raise.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+from typing import Iterator, List
+
 import torch
 
 from repro_torch.kernels.common import (check_cuda_inputs, decode_plan,
@@ -49,9 +53,40 @@ from repro_torch.kernels.decode_attention import (decode_attention_plain,
                                                   dequantize_rows)
 
 # launches of the float and the int8 CUDA kernel in this process (the
-# plain versions do not count); reset by whoever reads them
+# plain versions do not count); reset by whoever reads them.  A thread
+# inside ``recording()`` counts its launches on the recording instead
 launches = 0
 quant_launches = 0
+_counting = threading.Lock()
+_recording = threading.local()
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[List[int]]:
+    """This thread's launches, float and int8, while the block runs, kept
+    off the process's counters: a CUDA-graph capture records them, and
+    each replay of the graph adds them with ``count``
+    (``models/decode_graph.py``).  Other threads count on meanwhile."""
+    counts = [0, 0]
+    _recording.counts = counts
+    try:
+        yield counts
+    finally:
+        _recording.counts = None
+
+
+def count(n: int = 0, quant: int = 0) -> None:
+    """Add ``n`` float and ``quant`` int8 launches to the counters, or to
+    this thread's recording inside ``recording()``."""
+    global launches, quant_launches
+    counts = getattr(_recording, "counts", None)
+    if counts is not None:
+        counts[0] += n
+        counts[1] += quant
+        return
+    with _counting:
+        launches += n
+        quant_launches += quant
 
 
 def gather_pages(pages: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
@@ -116,7 +151,6 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            lengths: torch.Tensor) -> torch.Tensor:
     """Paged decode attention: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors (contract in the module docstring)."""
-    global launches
     inputs = {"q": q, "k_pages": k_pages, "v_pages": v_pages,
               "block_table": block_table, "lengths": lengths}
     if on_cpu(inputs):
@@ -138,7 +172,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
            [q, k_pages, v_pages, block_table, lengths, out, ws, tickets],
            [B, H, KVH, D, N, bs, nb, dtype, plan.splits, plan.d_pad,
             plan.smem_bytes])
-    launches += 1
+    count(1)
     return out
 
 
@@ -149,7 +183,6 @@ def paged_decode_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
                                  lengths: torch.Tensor) -> torch.Tensor:
     """Paged decode attention over int8 pages: the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors."""
-    global quant_launches
     inputs = {"q": q, "k_pages": k_pages, "v_pages": v_pages,
               "k_scale": k_scale, "v_scale": v_scale,
               "block_table": block_table, "lengths": lengths}
@@ -179,5 +212,5 @@ def paged_decode_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
             ws, tickets],
            [B, H, KVH, D, N, bs, nb, dtype, plan.splits, plan.d_pad,
             plan.smem_bytes])
-    quant_launches += 1
+    count(quant=1)
     return out

@@ -25,7 +25,9 @@ prefill and decode).
   * ``prefill_chunk(params, cache, tokens, starts, valid)``
   * ``init_paged_cache(num_blocks, block_size, dtype, device)`` -> page pools
   * ``prefill_chunk_paged(params, cache, tokens, starts, valid, block_table)``
-  * ``decode_step_paged(params, cache, tokens, lengths, block_table)``
+  * ``decode_step_paged(params, cache, tokens, lengths, block_table)``,
+    on CUDA tensors replayed from a CUDA graph captured on first use
+    (``models/decode_graph.py``; ``.eager`` is the step run op by op)
 The last four are None for the SSM and the hybrid (their state carry
 needs single-shot prefill; they have no pageable KV) and for the
 encoder-decoder (its cross-attention), as in the reference.  The loss of
@@ -46,6 +48,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import encdec, hybrid, ssm_lm, transformer
+from repro_torch.models.decode_graph import DecodeGraphs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,9 +127,10 @@ def _build_transformer(cfg: ModelConfig) -> Model:
         prefill_chunk_paged=lambda params, cache, tokens, starts, valid,
         block_table: transformer.prefill_chunk_paged(
             params, cfg, tokens, starts, valid, block_table, cache),
-        decode_step_paged=lambda params, cache, tokens, lengths, block_table:
+        decode_step_paged=DecodeGraphs(
+            lambda params, cache, tokens, lengths, block_table:
             transformer.decode_step_paged(params, cfg, tokens, lengths,
-                                          block_table, cache),
+                                          block_table, cache)),
     )
 
 

@@ -37,15 +37,18 @@ changed is the compute:
     dispatch or snapshot;
   * the block table is uploaded only when ``BlockManager.table_version``
     moves, from a copy of the manager's table, which it mutates in place;
-  * timed regions end in ``torch.cuda.synchronize`` on a CUDA device, so
-    ``prefill_time`` / ``decode_time`` (and the RWT calibration built on
-    them) measure compute, not launch.  The synchronise waits for the
-    whole device: when several engines share one card from their own
-    threads (``serving.cluster.ThreadedCluster``), each issues its kernels
-    onto the device's one stream (the split-KV decode kernels' arrival
-    counters assume it), so a timed region also holds the work the other
-    engines queued meanwhile, as the reference's engines on one device run
-    their programs one after another;
+  * timed regions end in a synchronise of the device's stream on a CUDA
+    device, so ``prefill_time`` / ``decode_time`` (and the RWT calibration
+    built on them) measure compute, not launch.  When several engines
+    share one card from their own threads
+    (``serving.cluster.ThreadedCluster``), each issues its kernels onto
+    the device's one stream (the split-KV decode kernels' arrival counters
+    assume it), so a timed region also holds the work the other engines
+    queued meanwhile, as the reference's engines on one device run their
+    programs one after another.  It is the stream's synchronise and not
+    the device's: a device-wide one is refused while another thread
+    captures its decode step into a CUDA graph on a stream of its own
+    (``models/decode_graph.py``);
   * ``steps(k)`` runs the burst as a host loop over device-side finish
     flags with the reference's ``lax.while_loop`` rules and one host sync
     per burst: the host caps the burst at the largest number of tokens any
@@ -305,10 +308,10 @@ class ContinuousBatchingEngine:
                                      self.cfg.dtype, self.device)
 
     def _sync(self) -> None:
-        """Wait for the device (all of it, other engines' work included):
-        ends every timed region."""
+        """Wait for the device's stream (other engines' work on it
+        included): ends every timed region."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)  # qlint: disable=host-sync-in-hot-path -- documented timed-region sync: one per chunk round, decode round and burst (and single-shot admission), feeds prefill_time / decode_time / RWT calibration
+            torch.cuda.current_stream(self.device).synchronize()  # qlint: disable=host-sync-in-hot-path -- documented timed-region sync: one per chunk round, decode round and burst (and single-shot admission), feeds prefill_time / decode_time / RWT calibration
 
     def _to_device(self, a, dtype: Optional[torch.dtype] = None
                    ) -> torch.Tensor:

@@ -15,7 +15,8 @@ be placed inside a span), the id of the span open around it on the same
 thread (-1 for none), the thread's id and small integer counts: ``req``
 (a request's id, shared by the spans of one request), ``rows`` and
 ``padded`` (the rows a chunk round advances and the rows it computes),
-``iters`` (the decode iterations of one launch).  Records go into a
+``iters`` (the decode iterations of one launch), ``replays`` (a decode
+step replayed from its CUDA graph, ``models/decode_graph.py``).  Records go into a
 bounded buffer in memory, the oldest dropped first, and ``records()``
 returns them.  A span touches no tensor and never waits for the device.
 """
