@@ -1,9 +1,10 @@
 """How ``correct`` is decided: once the window has closed and the port's
 state is freed, a sample drawn from the seed of the requests that finished
-inside the window, the longest among them, goes through the float32 reference
-(``reference.py``) over each prompt and its served tokens.  At each served
-token it reads the gap by which that token's logit lies below the
-reference's best at its position.
+inside the window, the longest among them, goes through the float32
+reference of the configuration's family (``families/<family>.py``'s
+``logits``) over each prompt and its served tokens.  At each served token
+it reads the gap by which that token's logit lies below the reference's
+best at its position.
 
 The numbers compared, and their limits, are the configuration's
 ``check.limits``: the widest gap (``max_logit_gap``) and the mean gap over
@@ -14,12 +15,13 @@ puts first at each position.
 from __future__ import annotations
 
 import sys
+from pathlib import Path
 from typing import List, Optional
 
 import numpy as np
 import torch
 
-from qlm_bench import reference
+from qlm_bench import families
 
 
 def sample(requests, seed: int, n: int, budget: int, window: tuple
@@ -49,18 +51,42 @@ def sample(requests, seed: int, n: int, budget: int, window: tuple
     return out
 
 
-def gaps(config: dict, params, requests, precision: Optional[str] = None
-         ) -> torch.Tensor:
+def served_gaps(logits, model: dict, weights, prompt, served,
+                precision: Optional[str] = None) -> torch.Tensor:
+    """For one request: at each served token, how far its float32 logit
+    lies below the float32 reference's best (0 where it is the best), by
+    a family's ``logits``.  With ``precision`` (the control) the token
+    judged at each position is the one that reference in that precision
+    puts first, on the same prompt and served tokens, in place of the
+    served one."""
+    device = weights["embed"].device
+    seq = torch.as_tensor(list(prompt) + list(served[:-1]),
+                          dtype=torch.long, device=device)
+    first = len(prompt) - 1
+    ref = logits(model, weights, seq, first)
+    if precision is None:
+        judged = torch.as_tensor(list(served), dtype=torch.long,
+                                 device=device)
+    else:
+        judged = logits(model, weights, seq, first, precision).argmax(-1)
+    best = ref.max(-1).values
+    return best - ref.gather(1, judged[:, None])[:, 0]
+
+
+def gaps(config: dict, params, requests, precision: Optional[str] = None,
+         bench: Path = families.BENCH) -> torch.Tensor:
     """Every served token's gap below the reference's best, over
-    ``requests`` (``reference.served_gaps``), as one float32 CPU tensor."""
+    ``requests`` (``served_gaps`` by the configuration's family), as one
+    float32 CPU tensor."""
+    logits = families.of(config, bench).logits
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out = [torch.zeros(0)]
     with torch.inference_mode():
         for r in requests:
-            out.append(reference.served_gaps(
-                config["model"], params, r.prompt_tokens, r.output_tokens,
-                precision).float().cpu())
+            out.append(served_gaps(
+                logits, config["model"], params, r.prompt_tokens,
+                r.output_tokens, precision).float().cpu())
     return torch.cat(out)
 
 
@@ -77,7 +103,8 @@ def readings(g: torch.Tensor) -> dict:
 
 
 def judge(config: dict, params, requests, seed: int, window: tuple,
-          precision: Optional[str] = None) -> dict:
+          precision: Optional[str] = None, bench: Path = families.BENCH
+          ) -> dict:
     """``correct``: every number the configuration limits is within its
     limit, over a sample of at least one request finished in the window.
     ``precision`` judges the reference in that precision in the port's
@@ -85,7 +112,7 @@ def judge(config: dict, params, requests, seed: int, window: tuple,
     rule = config["check"]
     picked = sample(requests, seed, rule["sample_requests"],
                     rule["sample_tokens"], window)
-    g = gaps(config, params, picked, precision)
+    g = gaps(config, params, picked, precision, bench)
     read = readings(g)
     checks = {"requests_compared": {"value": len(picked), "limit": 1}}
     correct = bool(picked)

@@ -5,8 +5,10 @@ Everything that belongs to one configuration, traffic mix, cell or metric
 is a file found by its name:
 
   * ``configs/<config>.json``: the published configuration, the sizes as
-    run (``"model"``, laid over the port's ``get_arch(arch)``), the engine
-    settings, the correctness limit;
+    run (``"model"``, laid over the port's ``get_arch(arch)``), the
+    architecture ``"family"``, the engine settings, the correctness limit;
+  * ``families/<family>.py``: the family's refusal, weights, reference and
+    attention layers (``families/__init__.py``);
   * ``traffic/<mix>.json``: a mix's parameters, read by ``generator.py``;
   * ``cells/<cell>.json`` (optional): the cell's own values, such as the
     rate, laid over its mix;
@@ -34,9 +36,9 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from qlm_bench import check, counting, generator, trace, weights
+from qlm_bench import check, counting, families, generator, trace
 
-BENCH = Path(__file__).resolve().parent
+BENCH = families.BENCH
 ROOT = BENCH.parent
 if str(ROOT / "src") not in sys.path:        # the port, beside the bench
     sys.path.insert(0, str(ROOT / "src"))
@@ -157,6 +159,7 @@ class Run:
     ledger: Optional[Ledger] = None
     trace: Optional[dict] = None
     setup_s: float = 0.0
+    layers: list = dataclasses.field(default_factory=list)  # attention_layers
     kv_pool: Optional[dict] = None  # page-pool blocks: all, in use (window)
 
     def in_window(self, t: Optional[float]) -> bool:
@@ -170,9 +173,10 @@ class Run:
 # set-up
 # ---------------------------------------------------------------------------
 
-def model_config(config: dict):
+def model_config(config: dict, bench: Path = BENCH):
     """The port's ModelConfig: ``get_arch(arch)`` with the configuration's
-    sizes laid over it; refuses what the reference does not compute."""
+    sizes laid over it; refused by the family where its reference does not
+    compute it."""
     from repro_torch.configs import get_arch
 
     sizes = dict(config["model"])
@@ -180,10 +184,7 @@ def model_config(config: dict):
     if "moe" in sizes:
         sizes["moe"] = dataclasses.replace(cfg.moe, **sizes["moe"])
     cfg = dataclasses.replace(cfg, **sizes)
-    if cfg.qkv_bias or cfg.sliding_window or cfg.kv_quant \
-            or cfg.arch_type not in ("dense", "moe"):
-        raise ValueError(f"{config['name']}: the reference computes a dense "
-                         f"or MoE decoder with full float attention only")
+    families.of(config, bench).accepts(cfg)
     return cfg
 
 
@@ -192,12 +193,11 @@ def engine_config(config: dict, device: str, dtype):
     return EngineConfig(device=device, dtype=dtype, **config["engine"])
 
 
-def wrapped(model, ledger: Ledger, esize: int, sizes: dict):
+def wrapped(model, ledger: Ledger, esize: int, layers: list):
     """The Model with its paged prefill and decode counting, while
     ``ledger.on``, the rows each chunk round advances and computes and
-    each attention launch's least time, and opening a host span."""
-    L, H, KVH = sizes["num_layers"], sizes["num_heads"], sizes["num_kv_heads"]
-    D = sizes.get("head_dim") or sizes["d_model"] // H
+    each attention launch's least time, ``count`` launches of each of the
+    family's ``layers`` groups, and opening a host span."""
     prefill, decode = model.prefill_chunk_paged, model.decode_step_paged
 
     def prefill_chunk_paged(params, cache, tokens, starts, valid, table):
@@ -211,9 +211,10 @@ def wrapped(model, ledger: Ledger, esize: int, sizes: dict):
                 vd.append(min(C, eng.slots[i].prompt_len - pos))
             ledger.useful_rows += sum(vd)
             ledger.computed_rows += tokens.shape[0] * tokens.shape[1]
-            ledger.prefill_least_s += L * counting.prefill_least_s(
-                esize, H, KVH, D, st, vd)
-            ledger.prefill_launches += L
+            for L, H, KVH, D, window in layers:
+                ledger.prefill_least_s += L * counting.prefill_least_s(
+                    esize, H, KVH, D, st, vd, window)
+                ledger.prefill_launches += L
         with trace.span(ledger.slice, "model.prefill_chunk"):
             return prefill(params, cache, tokens, starts, valid, table)
 
@@ -227,9 +228,10 @@ def wrapped(model, ledger: Ledger, esize: int, sizes: dict):
                     for i in eng.decode_slots()]
             k = ledger.round_calls
             ctx = [n + k + 1 for n, rem in ledger.round_state if k < rem]
-            ledger.decode_least_s += L * counting.decode_least_s(
-                esize, H, KVH, D, ctx)
-            ledger.decode_launches += L
+            for L, H, KVH, D, window in layers:
+                ledger.decode_least_s += L * counting.decode_least_s(
+                    esize, H, KVH, D, ctx, window)
+                ledger.decode_launches += L
         ledger.round_calls += 1
         with trace.span(ledger.slice, "model.decode_step"):
             return decode(params, cache, tokens, lengths, table)
@@ -238,7 +240,8 @@ def wrapped(model, ledger: Ledger, esize: int, sizes: dict):
                                decode_step_paged=decode_step_paged)
 
 
-def build(config: dict, params, device: str, dtype, ledger: Optional[Ledger]):
+def build(config: dict, params, device: str, dtype, ledger: Optional[Ledger],
+          bench: Path = BENCH):
     """The cluster of ``launch/serve.py::build_cluster`` with one instance:
     the model calibrated on a throwaway engine (``calibrate_registry``),
     then the serving engine, its agent and the controller."""
@@ -251,10 +254,11 @@ def build(config: dict, params, device: str, dtype, ledger: Optional[Ledger]):
     from repro_torch.serving import ContinuousBatchingEngine
 
     name = config["name"]
-    model = build_model(model_config(config))
+    model = build_model(model_config(config, bench))
     if ledger is not None:
         model = wrapped(model, ledger, torch.empty((), dtype=dtype)
-                        .element_size(), config["model"])
+                        .element_size(), families.of(config, bench)
+                        .attention_layers(config["model"]))
     registry = {name: (model, params)}
     ecfg = engine_config(config, device, dtype)
     hw = calibrate_registry(registry, ecfg)
@@ -302,11 +306,11 @@ def run_cell(cell_name: str, seed: int, seconds: float, traced: bool, *,
     cell = cell_of(spec, cell_name)
     config = config or load_json("configs", cell["config"], bench)
     traffic = traffic or traffic_of(cell, bench)
-    params = make_params(config, seed, device)
+    params = make_params(config, seed, device, bench)
     out = measure(spec, cell_name, config, traffic, params, seed, seconds,
                   traced, device, bench, t_process, hooks)
     verdict = check.judge(config, params, out["requests"], seed,
-                          out["run"].window)
+                          out["run"].window, bench=bench)
     return {**out, "correct": verdict["correct"], "checks": verdict["checks"]}
 
 
@@ -315,9 +319,9 @@ def dtype_of(config: dict, device: str):
         else torch.float32
 
 
-def make_params(config: dict, seed: int, device: str):
-    return weights.make_weights(config["model"], seed,
-                                dtype_of(config, device), torch.device(device))
+def make_params(config: dict, seed: int, device: str, bench: Path = BENCH):
+    return families.of(config, bench).make_weights(
+        config["model"], seed, dtype_of(config, device), torch.device(device))
 
 
 def measure(spec, cell_name, config, traffic, params, seed, seconds, traced,
@@ -329,7 +333,8 @@ def measure(spec, cell_name, config, traffic, params, seed, seconds, traced,
     dtype = dtype_of(config, device)
     np.random.seed(seed % 2**32)        # calibrate_from_engine's prompts
     ledger = Ledger() if traced else None
-    eng, agent, info, controller = build(config, params, device, dtype, ledger)
+    eng, agent, info, controller = build(config, params, device, dtype,
+                                         ledger, bench)
     if hooks is not None:
         hooks(eng)
     warm_up(eng, config["model"]["vocab_size"])
@@ -344,6 +349,7 @@ def measure(spec, cell_name, config, traffic, params, seed, seconds, traced,
     run = serve(traffic, config, seconds, arrivals, t0, eng, agent, info,
                 controller, ledger, traced)
     run.setup_s = t0 - t_process
+    run.layers = families.of(config, bench).attention_layers(config["model"])
     memory_peak = torch.cuda.max_memory_allocated() if on_card else 0
     print(f"timing: setup {run.setup_s:.2f} s, lead-in "
           f"{run.window[0] - t0:.2f} s, window {seconds:g} s; requests in "

@@ -1,27 +1,24 @@
-"""The plain reference: a decoder-only transformer in float32 PyTorch,
-written from the architecture, importing nothing of the port.
+"""The plain reference's parts, in float32 PyTorch, written from the
+architecture and importing nothing of the port: the families'
+``logits`` (``families/<family>.py``) are made of them.
 
-It reads a configuration's ``"model"`` sizes and the weights that
-``weights.py`` made (the tensors the port served, in their served dtype;
-each layer's are cast to float32 here, one layer at a time, so the whole
-model never sits on the card in float32).  Per layer: RMS norm, q/k/v
-projections, rotary embedding on halves (rotate-half form), causal
-attention with grouped KV heads at ``1/sqrt(head_dim)``, the output
-projection, RMS norm, then a SwiGLU MLP or a dropless top-k mixture of
+The weights are the tensors the port served, in their served dtype; each
+product casts its weight to float32 (``Matmul``), one layer at a time, so
+the whole model never sits on the card in float32.  Rotary embedding on
+halves (rotate-half form), causal attention with grouped KV heads at
+``1/sqrt(head_dim)``, a SwiGLU MLP, and a dropless top-k mixture of
 experts (softmax router in float32, top k with ties to the lower index,
 weights renormalised over the chosen k, each expert's SwiGLU over exactly
-the tokens routed to it).  Final RMS norm and the (tied) unembedding over
-the real vocabulary.
+the tokens routed to it).
 
-``precision="fp8"`` is the control: every weight and activation product
-(projections, MLP, experts, unembedding) takes float8 e4m3 operands, the
+``Matmul("fp8")`` is the control's product: float8 e4m3 operands, the
 activations scaled per row and the weights per output column, products
 accumulated in float32; attention, norms and the router stay float32.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 import torch.nn.functional as F
@@ -104,55 +101,3 @@ def moe(mm: Matmul, x: torch.Tensor, p: Dict, k: int) -> torch.Tensor:
             y = swiglu(mm, x[tok], p["gate"][e], p["up"][e], p["down"][e])
             out.index_add_(0, tok, y * top_p[tok, slot, None])
     return out
-
-
-def logits(model: dict, weights: Dict, tokens: torch.Tensor,
-           first: int = 0, precision: str = "f32") -> torch.Tensor:
-    """float32 logits over the real vocabulary at positions ``first``..
-    ``len(tokens) - 1`` of one sequence (``tokens`` (L,), from position 0)."""
-    mm = Matmul(precision)
-    eps = model.get("rms_norm_eps", 1e-5)
-    theta = model.get("rope_theta", 10000.0)
-    H, KVH = model["num_heads"], model["num_kv_heads"]
-    hd = model.get("head_dim") or model["d_model"] // H
-    V = model["vocab_size"]
-    x = weights["embed"][tokens.long()].float()
-    L = x.shape[0]
-    for bp in weights["blocks"]:
-        a = bp["attn"]
-        h = rms_norm(x, bp["attn_norm"], eps)
-        q = rope(mm(h, a["wq"]).view(L, H, hd), theta)
-        kk = rope(mm(h, a["wk"]).view(L, KVH, hd), theta)
-        vv = mm(h, a["wv"]).view(L, KVH, hd)
-        x = x + mm(attention(q, kk, vv).reshape(L, H * hd), a["wo"])
-        h = rms_norm(x, bp["mlp_norm"], eps)
-        if "moe" in bp:
-            x = x + moe(mm, h, bp["moe"], model["moe"]["experts_per_token"])
-        else:
-            m = bp["mlp"]
-            x = x + swiglu(mm, h, m["gate"], m["up"], m["down"])
-    x = rms_norm(x[first:], weights["final_norm"], eps)
-    head = weights["embed"][:V].T if model.get("tie_embeddings", False) \
-        else weights["lm_head"][:, :V]
-    return mm(x, head)
-
-
-def served_gaps(model: dict, weights: Dict, prompt, served,
-                precision: Optional[str] = None) -> torch.Tensor:
-    """For one request: at each served token, how far its float32 logit
-    lies below the float32 reference's best (0 where it is the best).
-    With ``precision`` (the control) the token judged at each position is
-    the one that reference in that precision puts first, on the same
-    prompt and served tokens, in place of the served one."""
-    device = weights["embed"].device
-    seq = torch.as_tensor(list(prompt) + list(served[:-1]),
-                          dtype=torch.long, device=device)
-    first = len(prompt) - 1
-    ref = logits(model, weights, seq, first)
-    if precision is None:
-        judged = torch.as_tensor(list(served), dtype=torch.long,
-                                 device=device)
-    else:
-        judged = logits(model, weights, seq, first, precision).argmax(-1)
-    best = ref.max(-1).values
-    return best - ref.gather(1, judged[:, None])[:, 0]

@@ -1,7 +1,14 @@
 """The FLOP and byte counters against hand counts."""
 import pytest
 
-from qlm_bench import counting, harness
+from qlm_bench import counting, families, harness
+
+
+def _model(name):
+    """A configuration's sizes and its family's attention layers."""
+    config = harness.load_json("configs", name)
+    return config["model"], families.of(config).attention_layers(
+        config["model"])
 
 
 def test_decode_launch_by_hand():
@@ -29,24 +36,25 @@ def test_prefill_launch_by_hand():
 
 
 def test_token_flops_by_hand():
-    g = harness.load_json("configs", "granite-3-2b")["model"]
+    g, layers = _model("granite-3-2b")
     d, F, L, V = 2048, 8192, 40, 49155
     proj = 2 * d * 2048 + 2 * d * 512          # q, o; k, v
     per = 2 * (proj + 3 * d * F) + 4 * 32 * 64 * 10
-    assert counting.token_flops(g, 10, False) == L * per
-    assert counting.token_flops(g, 10, True) == L * per + 2 * d * V
-    x = harness.load_json("configs", "dbrx-132b-8of40")["model"]
+    assert counting.token_flops(g, layers, 10, False) == L * per
+    assert counting.token_flops(g, layers, 10, True) == L * per + 2 * d * V
+    x, layers = _model("dbrx-132b-8of40")
     d, Fe, E, k = 6144, 10752, 16, 4
     proj = 2 * d * 6144 + 2 * d * 1024
     per = 2 * (proj + k * 3 * d * Fe + d * E) + 4 * 48 * 128 * 1
-    assert counting.token_flops(x, 1, False) == 8 * per
+    assert counting.token_flops(x, layers, 1, False) == 8 * per
 
 
 @pytest.mark.parametrize("start,end", [(0, 1), (0, 57), (16, 200)])
 def test_prompt_flops_is_the_sum_of_its_tokens(start, end):
-    g = harness.load_json("configs", "granite-3-2b")["model"]
-    want = sum(counting.token_flops(g, p + 1, p == end - 1)
+    g, layers = _model("granite-3-2b")
+    want = sum(counting.token_flops(g, layers, p + 1, p == end - 1)
                for p in range(start, end))
-    assert counting.prompt_flops(g, start, end, True) == pytest.approx(want)
-    assert counting.prompt_flops(g, start, end, False) \
+    assert counting.prompt_flops(g, layers, start, end, True) \
+        == pytest.approx(want)
+    assert counting.prompt_flops(g, layers, start, end, False) \
         == pytest.approx(want - 2 * 2048 * 49155)

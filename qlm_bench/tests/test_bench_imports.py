@@ -1,6 +1,6 @@
 """Nothing the benchmark runs imports JAX or the JAX package, compared by
 whole top-level name (``repro_torch`` passes, ``repro`` does not); the
-reference imports nothing of the port."""
+reference, its families and the counting import nothing of the port."""
 import ast
 import os
 import subprocess
@@ -37,7 +37,8 @@ def test_no_jax_and_no_reference_package(path):
 
 
 @pytest.mark.parametrize("name", ["reference.py", "counting.py",
-                                  "generator.py", "weights.py"])
+                                  "generator.py", "weights.py"] + sorted(
+    str(p.relative_to(BENCH)) for p in (BENCH / "families").glob("*.py")))
 def test_the_yardstick_imports_nothing_of_the_port(name):
     assert "repro_torch" not in set(_imports(BENCH / name))
 

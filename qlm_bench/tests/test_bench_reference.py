@@ -6,7 +6,7 @@ import types
 import pytest
 import torch
 
-from qlm_bench import harness, reference, weights
+from qlm_bench import families, harness, reference
 from qlm_bench.tests.small import one_thread, run_small, small
 
 
@@ -25,12 +25,13 @@ def test_reference_logits_match_the_port(cell):
     if "moe" in config["model"]:
         moe = config["model"]["moe"]
         moe["capacity_factor"] = moe["num_experts"] / moe["experts_per_token"]
-    params = weights.make_weights(config["model"], 7, torch.float32,
-                                  torch.device("cpu"))
+    family = families.of(config)
+    params = family.make_weights(config["model"], 7, torch.float32,
+                                 torch.device("cpu"))
     tokens = torch.randint(0, 500, (40,), generator=torch.Generator()
                            .manual_seed(3))
     want = _port_logits(config, params, tokens)
-    got = reference.logits(config["model"], params, tokens, first=39)[0]
+    got = family.logits(config["model"], params, tokens, first=39)[0]
     assert torch.allclose(got, want, atol=1e-4, rtol=1e-4), \
         (got - want).abs().max()
 
@@ -42,7 +43,8 @@ def test_dropless_needs_the_capacity_factor():
     from repro_torch.models import moe as port_moe
     _, config, _ = small("dbrx-132b-8of40.mixed-slo")
     m = config["model"]
-    params = weights.make_weights(m, 11, torch.float32, torch.device("cpu"))
+    params = families.of(config).make_weights(m, 11, torch.float32,
+                                              torch.device("cpu"))
     bp = params["blocks"][0]["moe"]
     x = torch.randn(1, 64, m["d_model"], generator=torch.Generator()
                     .manual_seed(5))
